@@ -6,19 +6,31 @@
 Run from the repository root.  It builds the port's CUDA kernels from
 ``kaarme_tpu_torch/csrc`` (into ``build/``), then:
 
-1. K1 (dense run segmentation) at the main path's shape (k=51, 2^26
+1. K1 (dense run segmentation) at the skm path's shape (k=51, 2^26
    windows of 150 bp reads with separators and N patches): kernel ==
    plain PyTorch version, and an overflow case that must leave a guard
    region past ``cap`` untouched;
 2. K2 (segment-sum + compaction) in embedded mode at the run-store
    merge's shape (6 columns) and in full_sum mode at the finalize's
    shape (4 key columns + count): kernel == plain;
-3. the CLI end to end on small inputs (k=31 and k=51, -m 0 and -m 2)
-   against a string-based golden count;
-4. the CLI at full size: a random 4.6 Mb genome, 150 bp reads at 30x
-   coverage, k=51, ``-s 8000000 -a 1``, with both kernels' launch
-   counters > 0, the counts summing to the number of valid windows, and
-   the count file byte-identical to the same run with ``--kernels plain``.
+3. K3 (canonical window keys) at the classic path's shape (k=51 and
+   k=13, 2^26 windows) and at k=201 on a small and an odd tail length:
+   kernel == plain, bit for bit;
+4. K4 (linear merge + compaction) at the classic merge's shape: the
+   dense store after one 2^26-window superstep, padded to 2^23 rows,
+   merged with the next 2^26 sorted window keys, embedded (k=51) and
+   separate-count (k=13), plus an overflow case with a guard region;
+   and K2's full_sum mode at the classic k=13 superstep's shape;
+5. the CLI end to end on small inputs (skm: k=31 and k=51, -m 0 and
+   -m 2; classic: k=13, and k=31 with ``--compactor merge``) against a
+   string-based golden count;
+6. the CLI at full size: a random 4.6 Mb genome, 150 bp reads at 30x
+   coverage, ``-s 8000000 -a 1``: k=51 on the skm route (count file ==
+   ``--kernels plain``), k=51 on the classic route with and without
+   ``--compactor merge`` (count files == the skm route's), and k=13 on
+   the classic route (counts sum to the valid windows; count file ==
+   ``--kernels plain`` == ``--compactor merge``), each with the launch
+   counters of its kernels > 0 and its peak device memory printed.
 
 Each phase raises on failure (non-zero exit).  The last lines are the
 kernel table as JSON, the card's name and power limit, and
@@ -38,6 +50,7 @@ import time
 
 K = 51
 N_WINDOWS = 1 << 26        # the superstep the CLI picks for the full-size file
+DISTINCT_K51 = 4_599_948   # distinct 51-mers of the full-size file (both pipelines)
 SEED = 20261016
 
 
@@ -176,6 +189,129 @@ def phase_k2(dev, k1_out):
                 full_sum_ms=fms, full_sum_plain_ms=fplain)
 
 
+def phase_k3(dev):
+    """K3 at the classic path's shape (k=51 and k=13 over 2^26 windows,
+    and the next 2^26 windows for phase_k4) and at k=201 (small n and a
+    tail n that is no multiple of any block size)."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_winkeys
+
+    err, times, batches = 0, {}, {}
+    for k in (51, 13):
+        codes = read_stream(dev, 4_600_000, 2 * N_WINDOWS + k - 1, n_every=100_003)
+        first, nxt = codes[:N_WINDOWS + k - 1], codes[N_WINDOWS:]
+        got = cuda_winkeys.window_keys(first, k, N_WINDOWS)
+        want = cuda_winkeys.window_keys_torch(first, k, N_WINDOWS)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"K3 k={k} kernel != plain (max abs err {e})")
+        err = max(err, e)
+        del want
+        ms = cuda_ms(lambda: cuda_winkeys.window_keys(first, k, N_WINDOWS))
+        plain_ms = cuda_ms(lambda: cuda_winkeys.window_keys_torch(first, k, N_WINDOWS))
+        times[k] = (ms, plain_ms)
+        batches[k] = (got, cuda_winkeys.window_keys(nxt, k, N_WINDOWS))
+        print(f"K3 window_keys k={k} n={N_WINDOWS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        del codes, first, nxt
+    for n in (1 << 16, 100_003):
+        codes = read_stream(dev, 4_600_000, n + 200, n_every=9_973)
+        e = max_abs_err(cuda_winkeys.window_keys(codes, 201, n),
+                        cuda_winkeys.window_keys_torch(codes, 201, n))
+        if e:
+            raise AssertionError(f"K3 k=201 n={n} kernel != plain (max abs err {e})")
+        err = max(err, e)
+        print(f"K3 window_keys k=201 n={n}: kernel == plain")
+    ms, plain_ms = times[51]
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, k13_ms=times[13][0],
+                k13_plain_ms=times[13][1]), batches
+
+
+def phase_k4(dev, batches):
+    """K4 against its plain version at the classic merge's shape, and
+    K2's full_sum mode at the classic k=13 (separate-count) superstep's
+    shape."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, sortcount
+
+    cap = 1 << 23                     # -s 8000000
+    out, err = {}, 0
+    for k in (51, 13):
+        eb = sortcount.embed_bits(k)
+        emb = eb >= 21
+        first, nxt = batches.pop(k)
+        W = len(first)
+        # the store after superstep 1 (sort + K2), dense in `cap` rows
+        if emb:
+            s1 = sortcount.lexsort(list(first[:-1]) + [first[-1] | 1], num_keys=W)
+            pk, pc, nd1 = cuda_compact.segsum_compact(s1, None, ebits=eb, out_len=cap)
+        else:
+            ones = torch.ones(N_WINDOWS, dtype=torch.int32, device=dev)
+            s1 = sortcount.lexsort(list(first) + [ones], num_keys=W)
+            pk, pc, nd1 = cuda_compact.segsum_compact(s1[:W], s1[W].contiguous(),
+                                                      out_len=cap)
+        del s1, first
+        a = torch.cat([pk[:-1], (pk[-1] | pc)[None]]) if emb else torch.cat([pk, pc[None]])
+        b = sortcount.lexsort(list(nxt[:-1]) + [nxt[-1] | 1] if emb else list(nxt),
+                              num_keys=W)
+        got = cuda_merge.merge_compact(a, b, embedded=emb, ebits=eb if emb else 0,
+                                       out_len=cap)
+        want = cuda_merge.merge_compact_torch(a, b, embedded=emb, ebits=eb if emb else 0,
+                                              out_len=cap)
+        torch.cuda.synchronize()
+        nd = want[2].tolist()
+        e = max_abs_err(got, want)
+        if e or got[2].tolist() != nd or not 0 < nd[0] <= cap:
+            raise AssertionError(f"K4 k={k} kernel != plain (max abs err {e}, nd "
+                                 f"{got[2].tolist()} vs {nd})")
+        err = max(err, e)
+        ms = cuda_ms(lambda: cuda_merge.merge_compact(a, b, embedded=emb,
+                                                      ebits=eb if emb else 0, out_len=cap))
+        plain_ms = cuda_ms(lambda: cuda_merge.merge_compact_torch(
+            a, b, embedded=emb, ebits=eb if emb else 0, out_len=cap))
+        out[k] = (ms, plain_ms)
+        print(f"K4 merge_compact k={k} {'embedded' if emb else 'separate count'}: "
+              f"{a.shape[0]} x {cap} prefix rows (nd {int(nd1[0])}) + {W} x {N_WINDOWS} "
+              f"batch rows -> nd {nd[0]}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        if emb:
+            # overflow: a capacity below nd; nothing may land past it
+            small, guard = nd[0] // 3, 4096
+            buf = torch.full((W + 1, small + guard), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+            ok, oc, ond = cuda_merge.launch_merge(a, b, buf, small, embedded=True, ebits=eb)
+            torch.cuda.synchronize()
+            if ond.tolist() != nd or not bool((buf[:, small:] == 0x5A5A5A5A).all()):
+                raise AssertionError(f"K4 overflow: nd {ond.tolist()} vs {nd}, or wrote past "
+                                     "out_len")
+            e = max_abs_err([ok, oc], [want[0][:, :small], want[1][:small]])
+            if e:
+                raise AssertionError("K4 overflow prefix != plain")
+            print(f"K4 overflow out_len={small} < nd={nd[0]}: guard intact, prefix == plain")
+            del buf, ok, oc
+        else:
+            # K2 full_sum at the classic separate-count superstep's shape
+            cnt = torch.cat([pc, torch.ones(N_WINDOWS, dtype=torch.int32, device=dev)])
+            s = sortcount.lexsort([torch.cat([pk[0], nxt[0]]), cnt], num_keys=1)
+            keys, c = s[:1], s[1].contiguous()
+            fgot = cuda_compact.segsum_compact(keys, c, out_len=cap)
+            fwant = cuda_compact.segsum_compact_torch(keys, c, out_len=cap)
+            torch.cuda.synchronize()
+            e = max_abs_err(fgot, fwant)
+            if e or fgot[2].tolist() != nd or fwant[2].tolist() != nd:
+                raise AssertionError(f"K2 full_sum (classic) kernel != plain (err {e})")
+            fms = cuda_ms(lambda: cuda_compact.segsum_compact(keys, c, out_len=cap))
+            fplain = cuda_ms(lambda: cuda_compact.segsum_compact_torch(keys, c, out_len=cap))
+            out["k2"] = (fms, fplain)
+            print(f"K2 segsum_compact full_sum (classic k=13 superstep): 1+1 cols x "
+                  f"{keys.shape[1]} rows, nd={fwant[2].tolist()[0]}; kernel {fms:.3f} ms, "
+                  f"plain {fplain:.3f} ms")
+            del s, keys, c, fgot, fwant
+        del a, b, got, want, pk, pc, nxt
+        torch.cuda.empty_cache()
+    k4 = dict(max_abs_err=err, ms=out[51][0], plain_ms=out[51][1],
+              k13_ms=out[13][0], k13_plain_ms=out[13][1])
+    return k4, dict(classic_full_sum_ms=out["k2"][0], classic_full_sum_plain_ms=out["k2"][1])
+
+
 def write_reads_fasta(path, genome_len: int, coverage: int, read_len: int = 150,
                       seed: int = SEED):
     """The reference's example shape (examples/make_example.py): a random
@@ -212,73 +348,130 @@ def phase_small(tmp):
 
     path = os.path.join(tmp, "small.fa")
     _, reads = write_reads_fasta(path, 20_000, 10)
-    for k in (31, 51):
+    routes = [(31, []), (51, []), (13, []), (31, ["--pipeline", "classic", "--compactor", "merge"])]
+    for k, extra in routes:
         gold = golden(reads, k)
         for mode, abu in ((0, 1), (2, 2)):
             out = os.path.join(tmp, f"small_{k}_{mode}.txt")
             rc, _ = cli.run([path, str(k), "-s", "100000", "-m", str(mode), "-a", str(abu),
-                             "-q", "-o", out])
+                             "-q", "-o", out] + extra)
             if rc:
-                raise AssertionError(f"small CLI run k={k} -m {mode} exited {rc}")
+                raise AssertionError(f"small CLI run k={k} {extra} -m {mode} exited {rc}")
             clip = (lambda c: c & 0xFFFF) if mode == 0 else (lambda c: min(c, 16383))
             want = {km: clip(c) for km, c in gold.items() if clip(c) >= abu}
             with open(out, "rb") as f:
                 got = {ln.split()[0]: int(ln.split()[1]) for ln in f.read().splitlines()}
             if got != want:
-                raise AssertionError(f"small CLI k={k} -m {mode}: {len(got)} k-mers vs "
-                                     f"golden {len(want)}")
-            print(f"small end to end k={k} -m {mode} -a {abu}: {len(got)} k-mers == golden")
+                raise AssertionError(f"small CLI k={k} {extra} -m {mode}: {len(got)} k-mers "
+                                     f"vs golden {len(want)}")
+            print(f"small end to end k={k} {' '.join(extra)} -m {mode} -a {abu}: "
+                  f"{len(got)} k-mers == golden")
+
+
+def launch_counters():
+    from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, cuda_skm, cuda_winkeys
+
+    return {"skm_dense": cuda_skm.run_rows_dense,
+            "segsum_compact": cuda_compact.segsum_compact,
+            "window_keys": cuda_winkeys.window_keys,
+            "merge_compact": cuda_merge.merge_compact}
+
+
+def run_full(argv, label: str, uses=()):
+    """One CLI run with every launch counter set to 0 just before it and
+    read just after; fails if a kernel of ``uses`` was not launched.
+    Returns (counter, launches)."""
+    import torch
+    from kaarme_tpu_torch import cli
+
+    fns = launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc, counter = cli.run(argv)
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if rc:
+        raise AssertionError(f"full-size CLI run {label} exited {rc}")
+    skipped = [u for u in uses if launches[u] < 1]
+    if skipped:
+        raise AssertionError(f"{label}: the path launched no {skipped}: {launches}")
+    st = counter.stats
+    fin = st.get("finalize_seconds")
+    print(f"full size {label}: count {st['build_seconds']:.3f} s "
+          f"({st['windows_processed'] / st['build_seconds']:.0f} windows/s), write "
+          f"{st['write_seconds']:.3f} s"
+          + (f" (finalize {fin:.3f} s of it)" if fin is not None else "")
+          + f", CLI wall {wall:.3f} s, peak device memory {peak} bytes; supersteps "
+          f"{st['batches']}, store grow events {st['grow_events']}; launches {launches}")
+    return counter, launches
+
+
+def same_file(a: str, b: str, what: str):
+    if not filecmp.cmp(a, b, shallow=False):
+        raise AssertionError(f"count file differs: {what}")
+    print(f"full size: byte-identical count files, {what}")
 
 
 def phase_full(tmp):
-    from kaarme_tpu_torch import cli
-    from kaarme_tpu_torch.ops import cuda_compact, cuda_skm
-
     path = os.path.join(tmp, "ecoli30x.fa")
     t0 = time.perf_counter()
     n_reads, _ = write_reads_fasta(path, 4_600_000, 30)
     print(f"full size input: {n_reads} reads x 150 bp (30x of 4.6 Mb), "
           f"{os.path.getsize(path)} bytes, written in {time.perf_counter() - t0:.3f} s")
-    out_k, out_p = os.path.join(tmp, "kernels.txt"), os.path.join(tmp, "plain.txt")
-    argv = [path, str(K), "-s", "8000000", "-a", "1", "-q"]
+    out = lambda name: os.path.join(tmp, name + ".txt")
 
-    cuda_skm.run_rows_dense.launches = 0
-    cuda_compact.segsum_compact.launches = 0
-    t0 = time.perf_counter()
-    rc, counter = cli.run(argv + ["-o", out_k])
-    wall = time.perf_counter() - t0
-    launches = {"skm_dense": cuda_skm.run_rows_dense.launches,
-                "segsum_compact": cuda_compact.segsum_compact.launches}
-    if rc:
-        raise AssertionError(f"full-size CLI run exited {rc}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"main path skipped a kernel: {launches}")
+    # the skm route (k >= 16 under auto)
+    argv = [path, str(K), "-s", "8000000", "-a", "1", "-q"]
+    counter, skm_launches = run_full(argv + ["-o", out("skm")], f"k={K} skm",
+                                     ("skm_dense", "segsum_compact"))
     _, cnt = counter.dump()
     windows = n_reads * (150 - K + 1)
     if int(cnt.sum()) != windows:
         raise AssertionError(f"sum of counts {int(cnt.sum())} != valid windows {windows}")
-    st = counter.stats
     distinct = counter.distinct_kmers()
-    print(f"full size k={K}: distinct {distinct}, sum of counts {int(cnt.sum())} == "
-          f"valid windows; launches {launches}; supersteps {st['batches']}, "
-          f"store grow events {st['grow_events']}, row replays {st['slot_grow_events']}")
-    print(f"full size k={K}: count {st['build_seconds']:.3f} s "
-          f"({st['windows_processed'] / st['build_seconds']:.0f} windows/s), write "
-          f"{st['write_seconds']:.3f} s (finalize {st['finalize_seconds']:.3f} s of it), "
-          f"CLI wall {wall:.3f} s")
+    if distinct != DISTINCT_K51:
+        raise AssertionError(f"k={K}: {distinct} distinct, expected {DISTINCT_K51}")
+    print(f"full size k={K} skm: distinct {distinct}, sum of counts {int(cnt.sum())} == "
+          f"valid windows; row replays {counter.stats['slot_grow_events']}")
+    del counter
+    run_full(argv + ["-o", out("skm_plain"), "--kernels", "plain"], f"k={K} skm, plain")
+    same_file(out("skm"), out("skm_plain"), f"k={K} skm kernels == plain")
 
-    t0 = time.perf_counter()
-    rc, plain = cli.run(argv + ["-o", out_p, "--kernels", "plain"])
-    pwall = time.perf_counter() - t0
-    if rc:
-        raise AssertionError(f"plain full-size CLI run exited {rc}")
-    if not filecmp.cmp(out_k, out_p, shallow=False):
-        raise AssertionError("count file differs between the kernels and the plain route")
-    ps = plain.stats
-    print(f"full size, plain route: byte-identical count file; count "
-          f"{ps['build_seconds']:.3f} s, write {ps['write_seconds']:.3f} s (finalize "
-          f"{ps['finalize_seconds']:.3f} s of it), CLI wall {pwall:.3f} s")
-    return launches
+    # the classic route at k=51, with and without the linear merge
+    classic = argv + ["--pipeline", "classic"]
+    counter, classic_launches = run_full(classic + ["-o", out("classic")],
+                                         f"k={K} classic", ("window_keys", "segsum_compact"))
+    if counter.n_distinct != distinct:
+        raise AssertionError(f"classic k={K}: {counter.n_distinct} distinct != {distinct}")
+    same_file(out("skm"), out("classic"), f"k={K} classic == skm ({distinct} distinct)")
+    _, merge_launches = run_full(classic + ["--compactor", "merge", "-o", out("merge")],
+                                 f"k={K} classic --compactor merge",
+                                 ("window_keys", "merge_compact"))
+    same_file(out("skm"), out("merge"), f"k={K} classic --compactor merge == skm")
+
+    # k=13: the classic route is the only one (separate-count layout)
+    argv = [path, "13", "-s", "8000000", "-a", "1", "-q"]
+    counter, _ = run_full(argv + ["-o", out("k13")], "k=13 classic",
+                          ("window_keys", "segsum_compact"))
+    _, cnt = counter.dump()
+    if int(cnt.sum()) != n_reads * (150 - 13 + 1):
+        raise AssertionError(f"k=13: sum of counts {int(cnt.sum())} != valid windows")
+    print(f"full size k=13 classic: distinct {counter.n_distinct}, sum of counts "
+          f"{int(cnt.sum())} == valid windows")
+    del counter, cnt
+    run_full(argv + ["-o", out("k13_plain"), "--kernels", "plain"], "k=13 classic, plain")
+    same_file(out("k13"), out("k13_plain"), "k=13 kernels == plain")
+    run_full(argv + ["--compactor", "merge", "-o", out("k13_merge")],
+             "k=13 classic --compactor merge", ("window_keys", "merge_compact"))
+    same_file(out("k13"), out("k13_merge"), "k=13 --compactor merge == sort + K2")
+    return {"skm_dense": skm_launches["skm_dense"],
+            "segsum_compact": skm_launches["segsum_compact"],
+            "window_keys": classic_launches["window_keys"],
+            "merge_compact": merge_launches["merge_compact"]}
 
 
 def main() -> int:
@@ -315,6 +508,11 @@ def main() -> int:
     k2 = phase_k2(dev, k1_out)
     del k1_out
     torch.cuda.empty_cache()
+    k3, batches = phase_k3(dev)
+    k4, k2_classic = phase_k4(dev, batches)
+    k2.update(k2_classic)
+    del batches
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase_small(tmp)
         launches = phase_full(tmp)
@@ -329,6 +527,13 @@ def main() -> int:
              source="kaarme_tpu_torch/csrc/segsum_compact.cu",
              replaces="kaarme_tpu/ops/pallas_compact.py:520",
              launches=launches["segsum_compact"], **k2),
+        dict(name="window_keys", route="cuda", source="kaarme_tpu_torch/csrc/winkeys.cu",
+             replaces="kaarme_tpu/ops/pallas_winkeys.py:136",
+             launches=launches["window_keys"], **k3),
+        dict(name="merge_compact", route="cuda",
+             source="kaarme_tpu_torch/csrc/merge_compact.cu",
+             replaces="kaarme_tpu/ops/pallas_merge.py:363",
+             launches=launches["merge_compact"], **k4),
     ]}
     print(json.dumps(table))
     print(smi)

@@ -1,15 +1,18 @@
 """kaarme_tpu_torch — the PyTorch + CUDA port of kaarme_tpu.
 
-The single-device super-k-mer pipeline on an NVIDIA H100, held exactly
-to the JAX package (``kaarme_tpu``), which stays the reference.
+The single-device sort backend on an NVIDIA H100 (the super-k-mer
+pipeline, and the classic pipeline with its linear-merge variant), held
+exactly to the JAX package (``kaarme_tpu``), which stays the reference.
 
 Layout
 ------
 - ``cli``      the reference CLI surface, plus ``--device`` and ``--kernels``
-- ``models``   streaming counters (``SortKmerCounter`` base, ``SkmCounter``)
-- ``ops``      PyTorch ops of the pipeline and the wrappers of the CUDA
-               kernels (K1 ``cuda_skm``, K2 ``cuda_compact``; ``_build``
-               compiles ``csrc/*.cu`` with nvcc at first use)
+- ``models``   streaming counters (``SortKmerCounter``: the classic
+               pipeline and the base of ``SkmCounter``)
+- ``ops``      PyTorch ops of the pipelines and the wrappers of the CUDA
+               kernels (K1 ``cuda_skm``, K2 ``cuda_compact``, K3
+               ``cuda_winkeys``, K4 ``cuda_merge``; ``_build`` compiles
+               ``csrc/*.cu`` with nvcc at first use)
 - ``io``       host 2-bit packing
 - ``utils``    device resolution, store conversion between the packages
 """

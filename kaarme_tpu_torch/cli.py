@@ -8,8 +8,11 @@ hand-written kernels; ``plain``: their plain PyTorch versions).
     python -m kaarme_tpu_torch.cli INPUT KLEN -s SLOTS [-m MODE] [-a MINABU]
                                    [-t THREADS] [-o OUT] [--device cuda|cpu]
 
-Only the single-device super-k-mer pipeline (k >= 16, sort backend) is
-ported; every other route is refused with a "not yet ported" error.
+The single-device sort backend is ported: the super-k-mer pipeline
+(k >= 16) and the classic pipeline (``--pipeline classic``, the only
+route for k < 16), with ``--compactor merge`` (the linear run merge) on
+the classic one.  Bloom (``-b``), ``--backend table`` and ``--devices``
+are refused with a "not yet ported" error.
 """
 
 from __future__ import annotations
@@ -44,10 +47,9 @@ def validate(args) -> str:
         return f"--backend {args.backend} is not yet ported"
     if args.devices > 1:
         return "--devices > 1 (multi-device counting) is not yet ported"
-    if args.compactor != "auto":
-        return f"--compactor {args.compactor} is not yet ported"
-    if args.pipeline != "skm":
-        return "the classic pipeline (--pipeline classic, or KLEN < 16) is not yet ported"
+    if args.compactor not in ("auto", "merge"):
+        return (f"--compactor {args.compactor} is a JAX-package variant; the port takes "
+                "'auto' or 'merge' and picks kernels with --kernels cuda|plain")
     return ""
 
 
@@ -62,6 +64,7 @@ def run(argv=None):
     from kaarme_tpu.io.reader import FormatError, sniff_format
 
     from .models.skm_counter import SkmCounter, SkmCounterConfig
+    from .models.sort_counter import SortCounterConfig, SortKmerCounter
 
     try:
         fmt, gz = sniff_format(args.INPUT)
@@ -89,12 +92,16 @@ def run(argv=None):
     # batch size from the input size: file bytes bound the window count
     est = max(os.path.getsize(args.INPUT), 1)
     blog2 = max(12, min(24, (est - 1).bit_length()))
+    kw = dict(k=args.KLEN, min_slots=args.hash_tab_size, mode=args.hash_table_type,
+              min_abundance=args.min_k_abu, batch_windows=1 << blog2,
+              prefix_cap=1 << max(12, min(22, blog2)), device=args.device,
+              kernels=args.kernels)
     try:
-        counter = SkmCounter(SkmCounterConfig(
-            k=args.KLEN, min_slots=args.hash_tab_size, mode=args.hash_table_type,
-            min_abundance=args.min_k_abu, batch_windows=1 << blog2,
-            prefix_cap=1 << max(12, min(22, blog2)), device=args.device,
-            kernels=args.kernels))
+        if args.pipeline == "skm":
+            # the skm pipeline has no merge variant: --compactor is ignored
+            counter = SkmCounter(SkmCounterConfig(**kw))
+        else:
+            counter = SortKmerCounter(SortCounterConfig(compactor=args.compactor, **kw))
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1, None

@@ -171,4 +171,4 @@ class SkmCounter(SortKmerCounter):
             config = SkmCounterConfig(k=int(z["k"]), mode=int(z["mode"]),
                                       min_abundance=int(z["min_abundance"]),
                                       device=device)
-        return super().load(path, config)
+        return super().load(path, config, device=device)

@@ -1,5 +1,6 @@
-"""Streaming base of the sort-backend counters, in PyTorch — the
-counterpart of ``kaarme_tpu/models/sort_counter.py``.
+"""Streaming sort-backend counter, in PyTorch — the counterpart of
+``kaarme_tpu/models/sort_counter.py``: the classic pipeline (one sorted
+row per window) and the base of the super-k-mer counter.
 
 The host reads and encodes the input, packs each superstep's code span
 to 2 bits per base plus a separator list on a worker thread, and copies
@@ -10,8 +11,11 @@ by up to ``_max_inflight`` supersteps; when a superstep overflowed the
 store's working size, the store grows and that superstep and every
 later one are replayed from their kept inputs.
 
-The superstep itself belongs to the subclass (``_dispatch``); the
-super-k-mer pipeline (models/skm_counter.py) is the one ported so far.
+The classic superstep (``_dispatch``) makes every window's canonical
+key (K3) and merges the keys into the store: one sort of prefix ++ keys
+and K2, or, with ``compactor="merge"``, a sort of the keys alone and
+K4's linear merge with the already sorted prefix.  The super-k-mer
+pipeline (models/skm_counter.py) overrides the superstep.
 """
 
 from __future__ import annotations
@@ -83,6 +87,9 @@ class SortCounterConfig:
     superbatch_batches: int = 4    # batches per superstep
     prefix_cap: int = 1 << 22      # distinct-store capacity; grows on demand
     min_slots: int = 0             # the reference's -s: initial store sizing
+    compactor: str = "auto"        # classic superstep: "auto" = sort + K2,
+                                   # "merge" = sort the batch only + K4
+                                   # (the skm pipeline ignores it)
     device: str = "cuda"           # "cuda" raises when there is no card
     kernels: str = "cuda"          # "cuda": hand-written kernels (their plain
                                    # versions on CPU tensors); "plain": the
@@ -99,6 +106,9 @@ class SortCounterConfig:
             raise ValueError("superbatch_batches must be >= 1")
         if self.kernels not in ("cuda", "plain"):
             raise ValueError("kernels must be 'cuda' or 'plain'")
+        if self.compactor not in ("auto", "merge"):
+            raise ValueError("compactor must be 'auto' or 'merge' (the kernels are "
+                             "chosen by 'kernels')")
         if self.min_slots:
             need = 1 << (int(self.min_slots) - 1).bit_length()
             self.prefix_cap = max(self.prefix_cap, need)
@@ -125,6 +135,7 @@ class SortKmerCounter:
         self._inflight = collections.deque()   # (nd tensor, _Step)
         self._max_inflight = 2
         self._eff_floor = 0      # store working size an overflow proved needed
+        self._delta_max = None   # max verified distinct growth per superstep
         # one worker: superstep s+1's host pack overlaps superstep s
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._prepped = []       # futures of packed supersteps
@@ -211,11 +222,44 @@ class SortKmerCounter:
             self.stats["batches"] += 1
             self.stats["windows_processed"] += n
 
+    def _eff_for_dispatch(self, n: int) -> int:
+        """Store working size for the next superstep (the reference's
+        live-prefix sizing): the live rows plus headroom for the
+        in-flight window from the largest verified distinct growth (n
+        before any), on the coarse ladder; never below a size that an
+        overflow proved needed, so a replay cannot repeat the overflow."""
+        cap = self.cfg.prefix_cap
+        if cap <= (1 << 12):
+            return cap
+        delta = self._delta_max if self._delta_max is not None else n
+        target = self.n_used + (self._max_inflight + 1) * max(delta, n // 16)
+        eff = min(max(sortcount.next_store_size(target, coarse=True), self._eff_floor), cap)
+        if self._inflight:
+            # unverified in-flight outputs may hold up to the current
+            # length of live rows: never cut below it
+            eff = max(eff, self.prefix[0].shape[0])
+        return eff
+
     def _dispatch(self, packed_d, sep_d, n: int, dense: bool):
-        """Run one superstep, append (nd tensor, _Step) to ``_inflight``
-        and set ``self.prefix`` to the unverified output."""
-        raise NotImplementedError(
-            "the classic sort pipeline is not ported yet; use SkmCounter")
+        """Run one classic superstep, append (nd tensor, _Step) to
+        ``_inflight`` and set ``self.prefix`` to the unverified output:
+        merged (K4) under ``compactor="merge"``, else embedded when the
+        trailing key word has >= 21 free bits, else the separate-count
+        superstep."""
+        cfg = self.cfg
+        eb = sortcount.embed_bits(cfg.k)
+        prefix_in = self._sized_prefix(self._eff_for_dispatch(n))
+        kw = dict(k=cfg.k, n=n, dense=dense, kernels=cfg.kernels)
+        if cfg.compactor == "merge":
+            new_prefix, ndv = sortcount.superstep_merged(packed_d, sep_d, prefix_in,
+                                                         ebits=eb, **kw)
+        elif eb >= 21:
+            new_prefix, ndv = sortcount.superstep_embedded(packed_d, sep_d, prefix_in,
+                                                           ebits=eb, **kw)
+        else:
+            new_prefix, ndv = sortcount.superstep_plain(packed_d, sep_d, prefix_in, **kw)
+        self._inflight.append((ndv, _Step(packed_d, sep_d, n, dense, 0, prefix_in)))
+        self.prefix = new_prefix
 
     def _sized_prefix(self, eff: int):
         """The store sliced, or padded with dead rows, to ``eff`` rows."""
@@ -234,6 +278,8 @@ class SortKmerCounter:
         return False
 
     def _accept(self, nd_exact: int, nd: int):
+        if nd_exact > self.n_distinct:
+            self._delta_max = max(self._delta_max or 0, nd_exact - self.n_distinct)
         self.n_distinct = nd_exact
         self.n_used = nd
         self.stats["compactions"] += 1
@@ -264,6 +310,7 @@ class SortKmerCounter:
             bound = min(cap_used + step.n, 2 * max(nd, cap_used))
             new_eff = sortcount.next_store_size(bound)
             self._eff_floor = max(self._eff_floor, new_eff)
+            self._delta_max = max(self._delta_max or 0, new_eff - self.n_used)
             if new_eff > self.cfg.prefix_cap:
                 self.cfg.prefix_cap = new_eff
                 self.stats["grow_events"] += 1
@@ -290,8 +337,11 @@ class SortKmerCounter:
 
     def dump(self):
         """(keys (N, W) uint32 sorted, counts (N,) int64) of all distinct
-        k-mers, before abundance filtering and clipping."""
-        raise NotImplementedError
+        k-mers, before abundance filtering and clipping.  Flushes
+        buffered input first."""
+        self._flush()
+        self._merge()
+        return self._dump_device()
 
     def _dump_device(self):
         """Store rows -> host (keys (N, words) uint32, counts int64),
@@ -354,12 +404,18 @@ class SortKmerCounter:
         self._buf.append(tail)
 
     @classmethod
-    def load(cls, path: str, config: SortCounterConfig):
-        """Restore a counter from a ``save`` checkpoint of either package."""
+    def load(cls, path: str, config: "SortCounterConfig | None" = None, *,
+             device: str = "cuda"):
+        """Restore a counter from a ``save`` checkpoint of either package
+        (without ``config``: the checkpoint's k, mode and abundance
+        threshold on ``device``)."""
         from ..utils.convert import store_from_numpy
 
         z = np.load(path)
         k = int(z["k"])
+        if config is None:
+            config = SortCounterConfig(k=k, mode=int(z["mode"]),
+                                       min_abundance=int(z["min_abundance"]), device=device)
         if config.k != k:
             raise ValueError(f"checkpoint is for k={k}, config has k={config.k}")
         self = cls(config)

@@ -1,8 +1,9 @@
-"""Build and load the package's CUDA kernels (K1, K2) at first use.
+"""Build and load the package's CUDA kernels (K1-K4) at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` file into ONE shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds),
-loaded with ctypes.  The library lands in ``build/kaarme_tpu_torch/``
+``nvcc`` compiles every ``csrc/*.cu`` file into an object, one process
+per file, all started together, and links them into ONE shared library
+with a plain C interface (no PyTorch headers, so the build takes
+seconds), loaded with ctypes.  The library lands in ``build/kaarme_tpu_torch/``
 beside the package, named by a hash of the sources, so an edited
 source is never served from a stale build.  Tensors are passed as
 ``data_ptr()`` integers and the stream as
@@ -57,15 +58,32 @@ def _sources():
 
 def _compile(out: str, srcs) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out[:-3]}.{os.getpid()}.tmp.so"
-    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *srcs]
+    nvcc = find_nvcc()
+    tag = f"{out[:-3]}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)[:-3]}.o" for src in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+                                   "-Xcompiler", "-fPIC", "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        BUILD_INFO["log"] = "".join(logs)
+        bad = [(src, p.returncode, log) for src, p, log in zip(srcs, procs, logs)
+               if p.returncode]
+        if bad:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{src} ({rc}):\n{log}" for src, rc, log in bad))
+        tmp = f"{tag}.tmp.so"
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["log"] = res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
 
 
@@ -75,6 +93,11 @@ def _bind(lib):
     lib.kt_segsum_compact.argtypes = [_P, _P, _I64, _I32, _I32, _I32, _P, _I64,
                                       _I64, _P, _P, _P]
     lib.kt_segsum_compact.restype = _I32
+    lib.kt_window_keys.argtypes = [_P, _I64, _I64, _I32, _P, _I64, _P]
+    lib.kt_window_keys.restype = _I32
+    lib.kt_merge_compact.argtypes = [_P, _I64, _I64, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                                     _P, _P, _P, _P, _I64, _I64, _P, _P]
+    lib.kt_merge_compact.restype = _I32
     return lib
 
 

@@ -1,6 +1,6 @@
-"""Store, unpack, sort and compaction helpers of the sort backend, in
-PyTorch (counterpart of ``kaarme_tpu/ops/sortcount.py``, the subset the
-super-k-mer main path runs).
+"""Store, unpack, sort and compaction helpers of the sort backend and
+the classic pipeline's supersteps, in PyTorch (counterpart of
+``kaarme_tpu/ops/sortcount.py``).
 
 Word layout: every key column is an ``int32`` tensor holding the uint32
 bit pattern (PyTorch lacks most uint32 arithmetic); kernels read it as
@@ -158,8 +158,7 @@ def _kernel_finish(sorted_cols: torch.Tensor, cap: int, embedded: bool,
     version on CPU ones), "plain" -> the plain version everywhere."""
     from . import cuda_compact
 
-    if kernels not in ("cuda", "plain"):
-        raise ValueError(f"kernels must be 'cuda' or 'plain', got {kernels!r}")
+    _check_kernels(kernels)
     fn = cuda_compact.segsum_compact if kernels == "cuda" else cuda_compact.segsum_compact_torch
     if embedded:
         okeys, ocnt, ndv = fn(sorted_cols, None, ebits=ebits, out_len=cap)
@@ -176,6 +175,95 @@ def compact_clamped(store, kernels: str = "cuda"):
     keys = list(store[:-1])
     s = lexsort(keys + [store[-1]], num_keys=len(keys))
     return _kernel_finish(s, s.shape[1], False, 0, kernels)
+
+
+# ---------------------------------------------------------------------------
+# Classic pipeline: one row per window (K3 keys, then sort + K2 or K4)
+# ---------------------------------------------------------------------------
+
+def embed_bits(k: int) -> int:
+    """Free low bits in the (left-aligned) trailing key word."""
+    r = k % 16
+    return 2 * (16 - r) if r else 0
+
+
+def _check_kernels(kernels: str):
+    if kernels not in ("cuda", "plain"):
+        raise ValueError(f"kernels must be 'cuda' or 'plain', got {kernels!r}")
+
+
+def window_keys_from_chunk(packed, sep, *, k: int, n: int, dense: bool = False,
+                           kernels: str = "cuda") -> tuple:
+    """Transfer chunk -> the n canonical window keys, unsorted (W int32
+    columns; invalid windows are all-ones) — unpack, then K3.  The
+    counterpart of ``sortcount._keys_from_chunk``."""
+    from . import cuda_winkeys
+
+    _check_kernels(kernels)
+    L = n + k - 1
+    codes = unpack_codes(packed, sep, L) if dense else unpack_codes_sparse(packed, sep, L)
+    fn = cuda_winkeys.window_keys if kernels == "cuda" else cuda_winkeys.window_keys_torch
+    return fn(codes, k, n)
+
+
+def superstep_embedded(packed, sep, prefix, *, k: int, n: int, ebits: int,
+                       dense: bool = False, kernels: str = "cuda"):
+    """Classic superstep with the count embedded in the trailing key
+    word's low ``ebits`` (>= 21): window keys (|1, a count of one) ++
+    the prefix (its count ORed into its last word), one W-column sort,
+    K2 embedded.  Returns (W key columns + count column, each cut to the
+    prefix capacity, int32 [nd_exact, nd_used]); nd > capacity means
+    the store overflowed."""
+    w = len(prefix) - 1
+    cap = prefix[0].shape[0]
+    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels)
+    cols = [torch.cat([prefix[i], keys[i]]) for i in range(w - 1)]
+    cols.append(torch.cat([prefix[w - 1] | prefix[-1], keys[w - 1] | 1]))
+    return _kernel_finish(lexsort(cols, num_keys=w), cap, True, ebits, kernels)
+
+
+def superstep_plain(packed, sep, prefix, *, k: int, n: int, dense: bool = False,
+                    kernels: str = "cuda"):
+    """Classic superstep for k without 21 free trailing-word bits: the
+    count rides the sort as a separate column (not a sort key) and K2's
+    full_sum mode sums each key's rows.  That is the reference's XLA
+    route (``compact``) on every input, and its Pallas route (the c_last
+    mode, which needs at most one non-unit row per key) wherever that
+    precondition holds — which every caller guarantees: the prefix holds
+    one row per key and window rows count one.  Same contract as
+    ``superstep_embedded``."""
+    w = len(prefix) - 1
+    cap = prefix[0].shape[0]
+    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels)
+    cols = [torch.cat([prefix[i], keys[i]]) for i in range(w)]
+    cnt = torch.cat([prefix[-1], torch.ones(n, dtype=torch.int32, device=prefix[-1].device)])
+    return _kernel_finish(lexsort(cols + [cnt], num_keys=w), cap, False, 0, kernels)
+
+
+def superstep_merged(packed, sep, prefix, *, k: int, n: int, ebits: int = 0,
+                     dense: bool = False, kernels: str = "cuda"):
+    """Linear-merge superstep (``--compactor merge``): sort only the n
+    window keys, then merge them with the already sorted, dense prefix
+    in one linear pass fused with the compaction (K4).  Embedded layout
+    when ``ebits`` >= 21, separate count otherwise.  Same contract as
+    ``superstep_embedded``."""
+    from . import cuda_merge
+
+    _check_kernels(kernels)
+    w = len(prefix) - 1
+    cap = prefix[0].shape[0]
+    embedded = ebits >= 21
+    keys = list(window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels))
+    if embedded:
+        keys[w - 1] = keys[w - 1] | 1
+        a = torch.stack(list(prefix[:w - 1]) + [prefix[w - 1] | prefix[-1]])
+    else:
+        a = torch.stack(list(prefix))
+    b = lexsort(keys, num_keys=w)
+    fn = cuda_merge.merge_compact if kernels == "cuda" else cuda_merge.merge_compact_torch
+    okeys, ocnt, ndv = fn(a, b, embedded=embedded, ebits=ebits if embedded else 0,
+                          out_len=cap)
+    return tuple(okeys.unbind(0)) + (ocnt,), ndv
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The PyTorch port's CLI: count files byte-identical to ``kaarme_tpu.cli``
-on the skm route, clear errors on the routes not yet ported, and no JAX
-anywhere in the port (a subprocess run and a source scan)."""
+on the skm and classic routes, clear errors on the routes not yet
+ported, and no JAX anywhere in the port (a subprocess run and a source
+scan)."""
 
 import os
 import pathlib
@@ -65,12 +66,36 @@ def test_query_and_banner(tmp_path, monkeypatch, capsys):
     assert out[-5:] == [str(golden[s]) for s in some] + ["-1", "-1"]
 
 
+@pytest.mark.parametrize("k,extra,mode,abu", [
+    (13, [], 2, 1), (13, [], 0, 2), (13, ["--compactor", "merge"], 2, 2),
+    (31, ["--pipeline", "classic"], 2, 2), (31, ["--pipeline", "classic"], 0, 1),
+    (51, ["--pipeline", "classic", "--compactor", "merge"], 0, 1),
+    (51, ["--pipeline", "classic", "--compactor", "merge"], 2, 2)])
+def test_classic_count_file_byte_identical_to_reference(tmp_path, k, extra, mode, abu):
+    """The classic pipeline (k < 16 under auto, or --pipeline classic),
+    with and without the linear-merge compactor.  The JAX CLI runs its
+    default compactor: its merge kernel has no CPU mode, and every
+    compactor gives the same counts."""
+    p = _fasta(tmp_path, seed=k + mode)
+    a, b = tmp_path / "port.out", tmp_path / "ref.out"
+    ha, hb = tmp_path / "port.histo", tmp_path / "ref.histo"
+    common = [str(p), str(k), "-s", "4096", "-m", str(mode), "-a", str(abu), "-q"]
+    assert cli.main(common + extra + ["-o", str(a), "--histo", str(ha), "--device", "cpu"]) == 0
+    ref_extra = [x for x in extra if x not in ("--compactor", "merge")]
+    assert ref_cli.main(common + ref_extra + ["-o", str(b), "--histo", str(hb)]) == 0
+    assert a.read_bytes() == b.read_bytes()
+    assert ha.read_bytes() == hb.read_bytes()
+    golden = codec.golden_count(io_reader.read_codes(str(p)), k)
+    clip = (lambda c: c & 0xFFFF) if mode == 0 else (lambda c: min(c, 16383))
+    want = {s: clip(c) for s, c in golden.items() if clip(c) >= abu}
+    got = {ln.split()[0]: int(ln.split()[1]) for ln in a.read_text().splitlines()}
+    assert got == want
+
+
 @pytest.mark.parametrize("extra,msg", [
     (["-b", "-u", "1000"], "Bloom"),
     (["--backend", "table"], "--backend table"),
     (["--devices", "2"], "--devices"),
-    (["--compactor", "merge"], "--compactor merge"),
-    (["--pipeline", "classic"], "classic"),
 ])
 def test_unported_routes_are_refused(tmp_path, capsys, extra, msg):
     p = _fasta(tmp_path)
@@ -80,10 +105,25 @@ def test_unported_routes_are_refused(tmp_path, capsys, extra, msg):
     assert msg in err and "not yet ported" in err
 
 
-def test_small_k_needs_classic_pipeline(tmp_path, capsys):
+@pytest.mark.parametrize("compactor", ["xla", "merge_interpret"])
+def test_jax_compactor_variants_point_to_kernels(tmp_path, capsys, compactor):
     p = _fasta(tmp_path)
-    assert cli.main([str(p), "13", "-s", "4096", "--device", "cpu"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    assert cli.main([str(p), "13", "-s", "4096", "--compactor", compactor,
+                     "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert f"--compactor {compactor}" in err and "--kernels" in err
+
+
+def test_skm_route_ignores_merge_compactor(tmp_path):
+    """As in the JAX package, --compactor merge is a classic-only variant:
+    the skm route accepts and ignores it."""
+    p = _fasta(tmp_path, seed=4)
+    a, b = tmp_path / "m.out", tmp_path / "d.out"
+    common = [str(p), "31", "-s", "4096", "-a", "1", "-q", "--device", "cpu"]
+    rc, counter = cli.run(common + ["--compactor", "merge", "-o", str(a)])
+    assert rc == 0 and type(counter).__name__ == "SkmCounter"
+    assert cli.main(common + ["-o", str(b)]) == 0
+    assert a.read_bytes() == b.read_bytes()
 
 
 def test_cuda_without_card_is_an_error(tmp_path, capsys):

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from kaarme_tpu_torch import cli
-from kaarme_tpu_torch.ops import cuda_compact, cuda_skm, sortcount
+from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, cuda_skm, cuda_winkeys, sortcount
 
 
 @pytest.fixture
@@ -92,6 +92,114 @@ def test_k2_kernel_equals_plain(dev, W, N, embedded):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2, 100), (13, 1 << 16), (16, 4097), (31, 1023),
+                                 (51, 1 << 20), (201, 3001), (49_200, 37)])
+def test_k3_kernel_equals_plain(dev, k, n):
+    """k=49,200 stages more than 48 KB and reads the codes from global
+    memory; its plain version runs on the CPU (tens of thousands of
+    tiny ops)."""
+    codes = torch.from_numpy(_codes(n, k, seed=k + n))
+    codes[7::61] = 4
+    codes[50:52] = 9                 # a high bit beyond bit 2 also marks invalid
+    got = cuda_winkeys.window_keys(codes.to(dev), k, n)
+    want = cuda_winkeys.window_keys_torch(codes if k > 1000 else codes.to(dev), k, n)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == -(-k // 16)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def _runs(dev, W, na, nb, embedded, seed, pad_a=0, pad_b=0, span=40):
+    """A: na distinct sorted keys with counts (+ pad_a sentinel rows);
+    B: nb sorted keys with repeats (+ pad_b sentinel rows)."""
+    rng = np.random.default_rng(seed)
+    eb = 26 if embedded else 0
+    low = ((1 << 32) - 1) ^ ((1 << eb) - 1)          # key bits of the last word
+
+    def keys(m):
+        x = rng.integers(0, span, (m, W)).astype(np.int64)
+        x[:, 0] |= 0x80000000
+        x[:, -1] = (x[:, -1] << eb) & low
+        return x
+
+    a = np.unique(keys(na), axis=0)[:na]
+    b = keys(nb)
+    b = b[np.lexsort(b.T[::-1])]
+    acnt = rng.integers(1, 1 << 21, a.shape[0])
+    if embedded:
+        a[:, -1] |= acnt
+        b[:, -1] |= 1
+    a = np.concatenate([a, np.full((pad_a, W), 0xFFFFFFFF)])
+    b = np.concatenate([b, np.full((pad_b, W), 0xFFFFFFFF)])
+    ta = [a[:, w] for w in range(W)]
+    if not embedded:
+        ta.append(np.concatenate([acnt, np.zeros(pad_a, np.int64)]))
+    to = lambda cols: torch.from_numpy(
+        np.stack(cols).astype(np.uint32).view(np.int32)).to(dev)
+    return to(ta), to([b[:, w] for w in range(W)]), eb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,na,nb,embedded", [
+    (4, 3000, 70_000, True), (1, 500, 9000, False), (2, 6000, 6000, False),
+    (13, 900, 5000, True), (20, 700, 3000, False), (3, 0, 4000, True),
+    (3, 2000, 0, False), (2, 0, 0, True)])
+def test_k4_kernel_equals_plain(dev, W, na, nb, embedded):
+    a, b, eb = _runs(dev, W, na, nb, embedded, seed=W + na + nb, pad_a=300, pad_b=77)
+    n = a.shape[1] + b.shape[1]
+    for out_len in (n, n // 3):
+        got = cuda_merge.merge_compact(a, b, embedded=embedded, ebits=eb, out_len=out_len)
+        want = cuda_merge.merge_compact_torch(a, b, embedded=embedded, ebits=eb,
+                                              out_len=out_len)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embedded", [True, False])
+def test_k4_exact_fit_and_overflow_guard(dev, embedded):
+    """Both runs full of real rows, no sentinel anywhere; then an output
+    capacity below nd must leave a guard region past it untouched."""
+    a, b, eb = _runs(dev, 2, 4096, 4096, embedded, seed=8, span=1 << 12)
+    want = cuda_merge.merge_compact_torch(a, b, embedded=embedded, ebits=eb)
+    got = cuda_merge.merge_compact(a, b, embedded=embedded, ebits=eb)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    nd = int(want[2][0])
+    small = nd // 2
+    out = torch.full((3, small + 999), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    keys, cnt, ndv = cuda_merge.launch_merge(a, b, out, small, embedded=embedded, ebits=eb)
+    torch.cuda.synchronize()
+    assert ndv.tolist() == [nd, nd]
+    assert bool((out[:, small:] == 0x5A5A5A5A).all())
+    assert torch.equal(keys, want[0][:, :small]) and torch.equal(cnt, want[1][:small])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,extra", [(13, []), (31, ["--pipeline", "classic"]),
+                                     (51, ["--pipeline", "classic", "--compactor", "merge"])])
+def test_classic_cli_kernels_equal_plain_route(dev, tmp_path, k, extra):
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 30_000)
+    starts = rng.integers(0, 30_000 - 150, 2000)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "r.fa", "wb") as f:
+        for i, s0 in enumerate(starts):
+            f.write(b">r%d\n%s\n" % (i, lut[genome[s0:s0 + 150]].tobytes()))
+    cuda_winkeys.window_keys.launches = 0
+    a, b = tmp_path / "k.txt", tmp_path / "p.txt"
+    argv = [str(tmp_path / "r.fa"), str(k), "-s", "100000", "-a", "1", "-q"] + extra
+    assert cli.main(argv + ["-o", str(a)]) == 0
+    assert cuda_winkeys.window_keys.launches > 0
+    assert cli.main(argv + ["-o", str(b), "--kernels", "plain"]) == 0
+    assert a.read_bytes() == b.read_bytes()
+    counts = [int(ln.split()[1]) for ln in a.read_bytes().splitlines()]
+    assert sum(counts) == 2000 * (150 - k + 1)
 
 
 @pytest.mark.cuda
