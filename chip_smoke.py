@@ -21,15 +21,25 @@ Run from the repository root.  It builds the port's CUDA kernels from
    merged with the next 2^26 sorted window keys, embedded (k=51) and
    separate-count (k=13), plus an overflow case with a guard region;
    and K2's full_sum mode at the classic k=13 superstep's shape;
-5. the CLI end to end on small inputs (skm: k=31 and k=51, -m 0 and
+5. K5 (slotted run segmentation) at the slotted skm path's shape (k=51,
+   2^26 windows, S=96) and with S=16, where tiles overflow and the same
+   rows must be dropped: kernel == plain, rows and max_tile_runs; and
+   on a tail of no whole number of 512-window tiles;
+6. the CLI end to end on small inputs (skm: k=31 and k=51, -m 0 and
    -m 2; classic: k=13, and k=31 with ``--compactor merge``) against a
-   string-based golden count;
-6. the CLI at full size: a random 4.6 Mb genome, 150 bp reads at 30x
+   string-based golden count, and the slotted skm counter at S=8
+   (S-ladder replays) against it too;
+7. the CLI at full size: a random 4.6 Mb genome, 150 bp reads at 30x
    coverage, ``-s 8000000 -a 1``: k=51 on the skm route (count file ==
-   ``--kernels plain``), k=51 on the classic route with and without
+   ``--kernels plain``), the slotted skm counter (``segpack="slotted"``,
+   the library API; count file == the skm route's, K5 launched on every
+   superstep), k=51 on the classic route with and without
    ``--compactor merge`` (count files == the skm route's), and k=13 on
    the classic route (counts sum to the valid windows; count file ==
-   ``--kernels plain`` == ``--compactor merge``), each with the launch
+   ``--kernels plain`` == ``--compactor merge``); then the two-pass
+   Bloom prefilter ``-b -u 5000000 -a 2`` at k=51 on the skm route and
+   the classic route with and without the merge (count files == the
+   ``-a 1`` file without its count-1 lines); each with the launch
    counters of its kernels > 0 and its peak device memory printed.
 
 Each phase raises on failure (non-zero exit).  The last lines are the
@@ -312,6 +322,37 @@ def phase_k4(dev, batches):
     return k4, dict(classic_full_sum_ms=out["k2"][0], classic_full_sum_plain_ms=out["k2"][1])
 
 
+def phase_k5(dev):
+    """K5 against its plain version at the slotted skm path's shape
+    (k=51, 2^26 windows, S=96), with S=16 (tiles overflow: the same rows
+    dropped, the same max_tile_runs > S), and on a tail of no whole
+    number of 512-window tiles."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_skm
+
+    codes = read_stream(dev, 4_600_000, N_WINDOWS + K - 1, n_every=100_003)
+    err, ms, plain_ms = 0, None, None
+    for n, S in ((N_WINDOWS, 96), (N_WINDOWS, 16), (N_WINDOWS // 3 + 77, 96)):
+        got = cuda_skm.run_rows_slotted(codes, k=K, n=n, S=S)
+        want = cuda_skm.run_rows_slotted_torch(codes, k=K, n=n, S=S)
+        torch.cuda.synchronize()
+        mr = int(want[1])
+        e = max_abs_err(got[0], want[0])
+        if e or int(got[1]) != mr or (S == 16 and mr <= S):
+            raise AssertionError(f"K5 n={n} S={S}: kernel != plain (max abs err {e}, "
+                                 f"max_tile_runs {int(got[1])} vs {mr})")
+        err = max(err, e)
+        rows = cuda_skm.slot_rows(n, S)
+        what = f"{rows} slot rows, max_tile_runs {mr}" + (" > S: rows dropped" if mr > S else "")
+        if n == N_WINDOWS and S == 96:
+            ms = cuda_ms(lambda: cuda_skm.run_rows_slotted(codes, k=K, n=n, S=S))
+            plain_ms = cuda_ms(lambda: cuda_skm.run_rows_slotted_torch(codes, k=K, n=n, S=S))
+            what += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+        print(f"K5 skm_slotted k={K} n={n} S={S}: {what}; kernel == plain")
+        del got, want
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
 def write_reads_fasta(path, genome_len: int, coverage: int, read_len: int = 150,
                       seed: int = SEED):
     """The reference's example shape (examples/make_example.py): a random
@@ -366,6 +407,21 @@ def phase_small(tmp):
                                      f"vs golden {len(want)}")
             print(f"small end to end k={k} {' '.join(extra)} -m {mode} -a {abu}: "
                   f"{len(got)} k-mers == golden")
+    # the slotted skm layout at S=8: tiles overflow and the S-ladder replays
+    out = os.path.join(tmp, "small_slotted.txt")
+    counter, launches = counted(
+        lambda: slotted_count([path, "31", "-s", "100000", "-a", "1", "-q"], out, S=8),
+        "small k=31 slotted S=8", ("skm_slotted", "segsum_compact"), quiet=True)
+    want = golden(reads, 31)
+    with open(out, "rb") as f:
+        got = {ln.split()[0]: int(ln.split()[1]) for ln in f.read().splitlines()}
+    ladder = counter.stats["slot_grow_events"]
+    if got != want or ladder < 1 or launches["skm_dense"]:
+        raise AssertionError(f"small slotted S=8: {len(got)} k-mers vs golden {len(want)}, "
+                             f"ladder events {ladder}, launches {launches}")
+    print(f"small end to end k=31 slotted skm_slots=8: {len(got)} k-mers == golden; "
+          f"S-ladder events {ladder} (S now {counter._S}), K5 launches "
+          f"{launches['skm_slotted']} for {counter.stats['batches']} supersteps")
 
 
 def launch_counters():
@@ -374,15 +430,35 @@ def launch_counters():
     return {"skm_dense": cuda_skm.run_rows_dense,
             "segsum_compact": cuda_compact.segsum_compact,
             "window_keys": cuda_winkeys.window_keys,
-            "merge_compact": cuda_merge.merge_compact}
+            "merge_compact": cuda_merge.merge_compact,
+            "skm_slotted": cuda_skm.run_rows_slotted}
 
 
-def run_full(argv, label: str, uses=()):
-    """One CLI run with every launch counter set to 0 just before it and
-    read just after; fails if a kernel of ``uses`` was not launched.
-    Returns (counter, launches)."""
-    import torch
+def slotted_count(argv, out_path: str, S=None):
+    """The slotted skm counter (no CLI flag: the library API) configured
+    as the CLI would configure the skm route for ``argv``; counts the
+    file and writes the count file.  Returns the counter."""
     from kaarme_tpu_torch import cli
+    from kaarme_tpu_torch.models.skm_counter import SkmCounter, SkmCounterConfig
+
+    args = cli.build_parser().parse_args(argv)
+    err = cli.validate(args)
+    if err or args.pipeline != "skm":
+        raise AssertionError(f"slotted run {argv}: {err or 'not the skm route'}")
+    kw = cli.config_kwargs(args)
+    if S:
+        kw["skm_slots"] = S
+    counter = SkmCounter(SkmCounterConfig(segpack="slotted", **kw))
+    counter.count_file(args.INPUT)
+    counter.write_output(out_path)
+    return counter
+
+
+def counted(fn, label: str, uses=(), quiet: bool = False):
+    """Run ``fn() -> counter`` with every launch counter set to 0 just
+    before it and read just after; fails if a kernel of ``uses`` was not
+    launched.  Returns (counter, launches)."""
+    import torch
 
     fns = launch_counters()
     for f in fns.values():
@@ -390,24 +466,45 @@ def run_full(argv, label: str, uses=()):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rc, counter = cli.run(argv)
+    counter = fn()
     wall = time.perf_counter() - t0
     launches = {name: f.launches for name, f in fns.items()}
     peak = torch.cuda.max_memory_allocated()
-    if rc:
-        raise AssertionError(f"full-size CLI run {label} exited {rc}")
     skipped = [u for u in uses if launches[u] < 1]
     if skipped:
         raise AssertionError(f"{label}: the path launched no {skipped}: {launches}")
+    if quiet:
+        return counter, launches
     st = counter.stats
     fin = st.get("finalize_seconds")
+    bloom = ""
+    if "new_in_second" in st:
+        bloom = (f"; Bloom pass 1 {st['bloom_pass1_seconds']:.3f} s ({st['pass1_batches']} "
+                 f"supersteps), new_in_first {st['new_in_first']}, new_in_second "
+                 f"{st['new_in_second']}, {st['bloom_bits']} bits x 2, "
+                 f"{st['bloom_hash_functions']} hash functions")
     print(f"full size {label}: count {st['build_seconds']:.3f} s "
           f"({st['windows_processed'] / st['build_seconds']:.0f} windows/s), write "
           f"{st['write_seconds']:.3f} s"
           + (f" (finalize {fin:.3f} s of it)" if fin is not None else "")
-          + f", CLI wall {wall:.3f} s, peak device memory {peak} bytes; supersteps "
-          f"{st['batches']}, store grow events {st['grow_events']}; launches {launches}")
+          + f", wall {wall:.3f} s, peak device memory {peak} bytes; supersteps "
+          f"{st['batches']} (+{st['replayed_supersteps']} replayed), store grow events "
+          f"{st['grow_events']}; launches {launches}"
+          + bloom)
     return counter, launches
+
+
+def run_full(argv, label: str, uses=()):
+    """One CLI run through ``counted``."""
+    from kaarme_tpu_torch import cli
+
+    def go():
+        rc, counter = cli.run(argv)
+        if rc:
+            raise AssertionError(f"full-size CLI run {label} exited {rc}")
+        return counter
+
+    return counted(go, label, uses)
 
 
 def same_file(a: str, b: str, what: str):
@@ -436,10 +533,25 @@ def phase_full(tmp):
     if distinct != DISTINCT_K51:
         raise AssertionError(f"k={K}: {distinct} distinct, expected {DISTINCT_K51}")
     print(f"full size k={K} skm: distinct {distinct}, sum of counts {int(cnt.sum())} == "
-          f"valid windows; row replays {counter.stats['slot_grow_events']}")
+          f"valid windows; run-row overflow events {counter.stats['slot_grow_events']}")
     del counter
     run_full(argv + ["-o", out("skm_plain"), "--kernels", "plain"], f"k={K} skm, plain")
     same_file(out("skm"), out("skm_plain"), f"k={K} skm kernels == plain")
+
+    # the slotted skm layout (K5), configured as the CLI configures skm
+    counter, slotted_launches = counted(lambda: slotted_count(argv, out("slotted")),
+                                        f"k={K} skm slotted S=96",
+                                        ("skm_slotted", "segsum_compact"))
+    st = counter.stats
+    k5 = slotted_launches["skm_slotted"]
+    if slotted_launches["skm_dense"] or k5 != st["batches"] + st["replayed_supersteps"]:
+        raise AssertionError(f"slotted: K5 launched {k5} times for {st['batches']} supersteps "
+                             f"and {st['replayed_supersteps']} replays: {slotted_launches}")
+    print(f"full size k={K} skm slotted: K5 launched on every superstep: {k5} launches = "
+          f"{st['batches']} supersteps + {st['replayed_supersteps']} replayed; final S "
+          f"{counter._S}, S-ladder events {st['slot_grow_events']}")
+    del counter
+    same_file(out("skm"), out("slotted"), f"k={K} skm slotted == skm dense")
 
     # the classic route at k=51, with and without the linear merge
     classic = argv + ["--pipeline", "classic"]
@@ -468,10 +580,27 @@ def phase_full(tmp):
     run_full(argv + ["--compactor", "merge", "-o", out("k13_merge")],
              "k=13 classic --compactor merge", ("window_keys", "merge_compact"))
     same_file(out("k13"), out("k13_merge"), "k=13 --compactor merge == sort + K2")
+
+    # the two-pass Bloom prefilter: the -a 1 file without its count-1 lines
+    with open(out("skm"), "rb") as f, open(out("ge2"), "wb") as g:
+        g.writelines(ln for ln in f if not ln.endswith(b" 1\n"))
+    bloom = [path, str(K), "-b", "-u", "5000000", "-a", "2", "-q"]
+    for name, extra, uses in (
+            ("bloom_skm", [], ("window_keys", "skm_dense", "segsum_compact")),
+            ("bloom_classic", ["--pipeline", "classic"], ("window_keys", "segsum_compact")),
+            ("bloom_merge", ["--pipeline", "classic", "--compactor", "merge"],
+             ("window_keys", "merge_compact"))):
+        counter, _ = run_full(bloom + extra + ["-o", out(name)],
+                              f"k={K} -b -u 5000000 -a 2 {' '.join(extra) or 'skm'}", uses)
+        if counter.bf1 is not None or not 0 < counter.stats["new_in_second"]:
+            raise AssertionError(f"{name}: BF1 kept or no second occurrences")
+        del counter
+        same_file(out("ge2"), out(name), f"k={K} {name} -a 2 == -a 1 without count-1 lines")
     return {"skm_dense": skm_launches["skm_dense"],
             "segsum_compact": skm_launches["segsum_compact"],
             "window_keys": classic_launches["window_keys"],
-            "merge_compact": merge_launches["merge_compact"]}
+            "merge_compact": merge_launches["merge_compact"],
+            "skm_slotted": slotted_launches["skm_slotted"]}
 
 
 def main() -> int:
@@ -513,6 +642,8 @@ def main() -> int:
     k2.update(k2_classic)
     del batches
     torch.cuda.empty_cache()
+    k5 = phase_k5(dev)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase_small(tmp)
         launches = phase_full(tmp)
@@ -534,6 +665,9 @@ def main() -> int:
              source="kaarme_tpu_torch/csrc/merge_compact.cu",
              replaces="kaarme_tpu/ops/pallas_merge.py:363",
              launches=launches["merge_compact"], **k4),
+        dict(name="skm_slotted", route="cuda", source="kaarme_tpu_torch/csrc/skm_slotted.cu",
+             replaces="kaarme_tpu/ops/pallas_skm.py:378", launches=launches["skm_slotted"],
+             **k5),
     ]}
     print(json.dumps(table))
     print(smi)

@@ -11,7 +11,8 @@ hand-written kernels; ``plain``: their plain PyTorch versions).
 The single-device sort backend is ported: the super-k-mer pipeline
 (k >= 16) and the classic pipeline (``--pipeline classic``, the only
 route for k < 16), with ``--compactor merge`` (the linear run merge) on
-the classic one.  Bloom (``-b``), ``--backend table`` and ``--devices``
+the classic one, and the two-pass Bloom prefilter (``-b -u U [-f FPR]``)
+on both.  ``--backend table`` (with or without ``-b``) and ``--devices``
 are refused with a "not yet ported" error.
 """
 
@@ -41,16 +42,29 @@ def validate(args) -> str:
     err = _ref_cli.validate(args)
     if err:
         return err
-    if args.use_bfilter:
-        return "-b/--use-bfilter (Bloom prefilter) is not yet ported"
     if args.backend != "sort":
-        return f"--backend {args.backend} is not yet ported"
+        bloom = " (and its Bloom prefilter -b)" if args.use_bfilter else ""
+        return f"--backend {args.backend}{bloom} is not yet ported"
     if args.devices > 1:
         return "--devices > 1 (multi-device counting) is not yet ported"
     if args.compactor not in ("auto", "merge"):
         return (f"--compactor {args.compactor} is a JAX-package variant; the port takes "
                 "'auto' or 'merge' and picks kernels with --kernels cuda|plain")
     return ""
+
+
+def config_kwargs(args) -> dict:
+    """The counter configuration's keyword arguments for validated CLI
+    arguments (library callers build a config the CLI would, then change
+    what the CLI has no flag for, such as ``segpack``)."""
+    # batch size from the input size: file bytes bound the window count;
+    # with -b the store is sized from the filter after pass 1, not by -s
+    est = max(os.path.getsize(args.INPUT), 1)
+    blog2 = max(12, min(24, (est - 1).bit_length()))
+    return dict(k=args.KLEN, min_slots=0 if args.use_bfilter else args.hash_tab_size,
+                mode=args.hash_table_type, min_abundance=args.min_k_abu,
+                batch_windows=1 << blog2, prefix_cap=1 << max(12, min(22, blog2)),
+                device=args.device, kernels=args.kernels)
 
 
 def run(argv=None):
@@ -63,6 +77,7 @@ def run(argv=None):
 
     from kaarme_tpu.io.reader import FormatError, sniff_format
 
+    from .models import bloom_counter
     from .models.skm_counter import SkmCounter, SkmCounterConfig
     from .models.sort_counter import SortCounterConfig, SortKmerCounter
 
@@ -84,29 +99,37 @@ def run(argv=None):
         print(f"  k-mer length:             {args.KLEN}")
         print(f"  min. abundance threshold: {args.min_k_abu}")
         print(f"  hash table type:          {'plain' if args.hash_table_type == 0 else 'kaarme'}")
-        print("  using bloom filters:      no")
-        print(f"    est. hash table size:   {args.hash_tab_size}")
+        print(f"  using bloom filters:      {'yes' if args.use_bfilter else 'no'}")
+        if args.use_bfilter:
+            print(f"    est. unique k-mers:     {args.unq_kmers}")
+            print(f"    false positive rate:    {args.bfilter_fpr}")
+        else:
+            print(f"    est. hash table size:   {args.hash_tab_size}")
         print(f"  output file:              {out}")
         print(f"  device:                   {args.device} ({args.kernels} kernels)")
 
-    # batch size from the input size: file bytes bound the window count
-    est = max(os.path.getsize(args.INPUT), 1)
-    blog2 = max(12, min(24, (est - 1).bit_length()))
-    kw = dict(k=args.KLEN, min_slots=args.hash_tab_size, mode=args.hash_table_type,
-              min_abundance=args.min_k_abu, batch_windows=1 << blog2,
-              prefix_cap=1 << max(12, min(22, blog2)), device=args.device,
-              kernels=args.kernels)
+    kw = config_kwargs(args)
+    bloom = (args.unq_kmers, args.bfilter_fpr) if args.use_bfilter else None
     try:
         if args.pipeline == "skm":
             # the skm pipeline has no merge variant: --compactor is ignored
-            counter = SkmCounter(SkmCounterConfig(**kw))
+            cfg = SkmCounterConfig(**kw)
+            counter = (bloom_counter.BloomSkmCounter(cfg, *bloom) if bloom
+                       else SkmCounter(cfg))
         else:
-            counter = SortKmerCounter(SortCounterConfig(compactor=args.compactor, **kw))
+            cfg = SortCounterConfig(compactor=args.compactor, **kw)
+            counter = (bloom_counter.BloomSortCounter(cfg, *bloom) if bloom
+                       else SortKmerCounter(cfg))
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1, None
     t0 = time.perf_counter()
-    counter.count_file(args.INPUT, prefetch=max(1, args.threads - 2))
+    prefetch = max(1, args.threads - 2)
+    if bloom:
+        # two passes over the file: fill the filter, then count its hits
+        counter.count_file_two_pass(args.INPUT, prefetch=prefetch)
+    else:
+        counter.count_file(args.INPUT, prefetch=prefetch)
     build_s = time.perf_counter() - t0
 
     n = counter.write_output(out)

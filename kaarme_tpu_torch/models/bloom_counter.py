@@ -1,0 +1,157 @@
+"""Two-pass Bloom-prefiltered counting on the sort backend, in PyTorch —
+the counterpart of the sort-backend half of
+``kaarme_tpu/models/bloom_counter.py`` (the reference's ``-b`` mode).
+
+pass 1  stream the whole input; every valid window's canonical key
+        (K3) is hashed to a 64-bit root and inserted into the two-stage
+        blocked Bloom filter (BF1 = seen once, BF2 = seen twice);
+sizing  the classic store is sized from 2 x the BF2 counter
+        ``new_in_second``; BF1 is dropped;
+pass 2  stream the input again and count only k-mers whose bits are all
+        set in BF2: on the classic pipeline failing windows become
+        sentinel rows before the sort (the ``bloom``/``hfn`` gate of
+        ``ops/sortcount``'s supersteps, with K2 or K4); on the skm
+        pipeline runs stream unfiltered (a run row packs up to LMAX
+        windows) and the gate applies at finalize expansion, where
+        windows materialize.
+
+Singletons never reach the final store; false positives only admit
+singletons that the min-abundance threshold drops.  BF words and both
+counters equal the JAX package's at equal superstep sizes (the batch
+boundaries decide which second occurrences a batch sees).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from kaarme_tpu.io import reader as io_reader
+from kaarme_tpu.utils.mathutils import bloom_sizing
+
+from ..ops import bloom as bloom_ops
+from ..ops import sortcount
+from .skm_counter import SkmCounter
+from .sort_counter import SortKmerCounter
+
+
+class _TwoPassBloom:
+    """Pass 1 and the pass switch of the two-pass Bloom counters (mixed
+    into a sort-backend counter).  Drive with ``count_file_two_pass`` /
+    ``count_codes_two_pass``, or by hand: stream pass 1 with
+    add_codes, call ``start_pass2()``, then stream again and finish."""
+
+    def _init_bloom(self, expected_unique: int, fpr: float):
+        bits, hfn = bloom_sizing(expected_unique, fpr)
+        # blocked layout: extra bits buy back the one-word fp inflation
+        bits = max(bits, 1 << 10) * bloom_ops.BLOCK_COMPENSATION
+        self.hfn = hfn
+        self.bf1 = bloom_ops.make_bloom(bits, self.device)
+        self.bf2 = bloom_ops.make_bloom(bits, self.device)
+        self._phase = 1
+        self._n12 = []
+        self.stats.update({"bloom_bits": bits, "bloom_hash_functions": hfn,
+                           "new_in_first": 0, "new_in_second": 0,
+                           "bloom_pass1_seconds": 0.0})
+
+    def _superstep_kwargs(self) -> dict:
+        return {"bloom": self.bf2, "hfn": self.hfn} if self._phase == 2 else {}
+
+    def _dispatch(self, packed_d, sep_d, n: int, dense: bool):
+        if self._phase != 1:
+            return super()._dispatch(packed_d, sep_d, n, dense)
+        self.bf1, self.bf2, n1, n2 = sortcount.bloom_pass1_superstep(
+            self.bf1, self.bf2, packed_d, sep_d, k=self.cfg.k, n=n, dense=dense,
+            hfn=self.hfn, kernels=self.cfg.kernels)
+        self._n12.append((n1, n2))
+
+    def start_pass2(self):
+        """Finish pass 1: record the exactly-once counters, reset the
+        stream statistics and drop BF1 (the reference's squeeze)."""
+        if self._phase != 1:
+            raise RuntimeError("start_pass2 called twice")
+        self.finish()
+        self.stats["new_in_first"] = sum(int(a) for a, _ in self._n12)
+        self.stats["new_in_second"] = sum(int(b) for _, b in self._n12)
+        self._n12 = []
+        self.stats["pass1_batches"] = self.stats["batches"]
+        self.stats["batches"] = 0
+        self.stats["windows_processed"] = 0
+        self.bf1 = None
+        self._phase = 2
+
+    def count_codes_two_pass(self, codes: np.ndarray):
+        """Both passes over an in-memory code stream."""
+        t0 = time.perf_counter()
+        self.add_codes(np.asarray(codes, np.uint8))
+        self.start_pass2()
+        self.stats["bloom_pass1_seconds"] = time.perf_counter() - t0
+        return self.count_codes(codes)
+
+    def count_file_two_pass(self, path: str,
+                            chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
+                            prefetch: int = 4):
+        """Both passes over a file (it is read twice)."""
+        t0 = time.perf_counter()
+        chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
+        if prefetch:
+            chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
+        for codes in chunks:
+            self.add_codes(codes)
+        self.start_pass2()
+        self.stats["bloom_pass1_seconds"] = time.perf_counter() - t0
+        return self.count_file(path, chunk_bytes=chunk_bytes, prefetch=prefetch)
+
+
+class BloomSortCounter(_TwoPassBloom, SortKmerCounter):
+    """Classic pipeline with the two-stage Bloom prefilter: pass 2 gates
+    windows before the sort."""
+
+    def __init__(self, config, expected_unique: int, fpr: float = 0.01):
+        super().__init__(config)
+        self._init_bloom(expected_unique, fpr)
+
+    def start_pass2(self):
+        """Also size the store from the BF2 counter (the reference's
+        2 x new_in_second table size)."""
+        super().start_pass2()
+        min_slots = max(1 << 10, 2 * self.stats["new_in_second"])
+        need = 1 << (min_slots - 1).bit_length()
+        if need > self.cfg.prefix_cap:
+            self.cfg.prefix_cap = need
+            self.prefix = sortcount.make_store(need, self.cfg.words, self.device)
+
+
+class BloomSkmCounter(_TwoPassBloom, SkmCounter):
+    """Super-k-mer pipeline with the two-stage Bloom prefilter: pass 2
+    streams runs unfiltered and gates the k-mers at finalize expansion.
+    The run store grows by replay, so it needs no sizing from BF2."""
+
+    def __init__(self, config, expected_unique: int, fpr: float = 0.01):
+        super().__init__(config)
+        self._init_bloom(expected_unique, fpr)
+
+
+def bloom_sort_count_codes(cfg, expected_unique: int, fpr: float,
+                           codes: np.ndarray) -> BloomSortCounter:
+    return BloomSortCounter(cfg, expected_unique, fpr).count_codes_two_pass(codes)
+
+
+def bloom_sort_count_file(cfg, expected_unique: int, fpr: float, path: str,
+                          chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
+                          prefetch: int = 4) -> BloomSortCounter:
+    return BloomSortCounter(cfg, expected_unique, fpr).count_file_two_pass(
+        path, chunk_bytes, prefetch)
+
+
+def bloom_skm_count_codes(cfg, expected_unique: int, fpr: float,
+                          codes: np.ndarray) -> BloomSkmCounter:
+    return BloomSkmCounter(cfg, expected_unique, fpr).count_codes_two_pass(codes)
+
+
+def bloom_skm_count_file(cfg, expected_unique: int, fpr: float, path: str,
+                         chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
+                         prefetch: int = 4) -> BloomSkmCounter:
+    return BloomSkmCounter(cfg, expected_unique, fpr).count_file_two_pass(
+        path, chunk_bytes, prefetch)

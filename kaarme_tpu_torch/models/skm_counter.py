@@ -1,14 +1,22 @@
 """Streaming counter on the super-k-mer (minimizer-run) pipeline, in
-PyTorch — the counterpart of ``kaarme_tpu/models/skm_counter.py`` on its
-dense path.
+PyTorch — the counterpart of ``kaarme_tpu/models/skm_counter.py``.
 
-Each superstep segments the stream into dense run rows (K1), merges the
-first ``eff`` of them into the run store (sort + K2) and reports
-[nd_exact, nd_used, rows_exact, rows_used].  Two optimistic sizes are
-verified afterwards and replayed larger when they were too small: the
-run-row capacity / merge mass (rows_used > eff) and the store's working
-size (nd_used > its capacity).  Canonical k-mer keys materialize once,
-at finalize, from the distinct runs.
+Each superstep segments the stream into run rows and merges them into
+the run store (sort + K2).  Two layouts (``segpack``):
+
+- "dense" (the default): K1 front-packs the live run rows; the first
+  ``eff`` of them are merged and the superstep reports [nd_exact,
+  nd_used, rows_exact, rows_used];
+- "slotted": K5 gives each 512-window tile S rows (``skm_slots``); all
+  ceil(n / 512) * S rows are merged, mostly sentinels, and the superstep
+  reports [nd_exact, nd_used, max_tile_runs].
+
+Optimistic sizes are verified afterwards and replayed larger when they
+were too small: the dense run-row capacity / merge mass (rows_used >
+eff), the slot budget (max_tile_runs > S: S doubles up to 512, which
+holds every start of a tile, so the ladder ends) and the store's
+working size (nd_used > its capacity).  Canonical k-mer keys
+materialize once, at finalize, from the distinct runs.
 """
 
 from __future__ import annotations
@@ -20,8 +28,10 @@ import numpy as np
 
 from kaarme_tpu.utils import codec
 
-from ..ops import skm, sortcount
+from ..ops import cuda_skm, skm, sortcount
 from .sort_counter import SortCounterConfig, SortKmerCounter, _Step, live_rows_to_host
+
+_JAX_SEGPACKS = ("pallas", "pallas_interpret", "dense_interpret", "xla")
 
 
 @dataclasses.dataclass
@@ -29,6 +39,10 @@ class SkmCounterConfig(SortCounterConfig):
     skm_cap_frac: int = 8      # run-row capacity = next_store_size(n // frac)
                                # (run mass is ~n/14 on 150 bp reads; an
                                # overflow replays at a larger capacity)
+    skm_slots: int = 96        # slotted layout: rows S per 512-window tile
+                               # (doubled on overflow, up to 512)
+    segpack: str = "auto"      # run-row layout: "dense" (K1; "auto") or
+                               # "slotted" (K5)
 
     def __post_init__(self):
         super().__post_init__()
@@ -36,6 +50,16 @@ class SkmCounterConfig(SortCounterConfig):
             raise ValueError(f"skm pipeline requires k >= {skm.M}")
         if self.skm_cap_frac < 1:
             raise ValueError("skm_cap_frac must be >= 1")
+        if not 1 <= self.skm_slots <= cuda_skm.SLOT_TILE:
+            raise ValueError(f"skm_slots must be in [1, {cuda_skm.SLOT_TILE}]")
+        if self.segpack in _JAX_SEGPACKS:
+            raise ValueError(f"segpack {self.segpack!r} is a JAX-package variant; the port "
+                             "takes 'auto', 'dense' or 'slotted' and runs the plain "
+                             "versions of the kernels with kernels='plain'")
+        if self.segpack == "auto":
+            self.segpack = "dense"
+        if self.segpack not in ("dense", "slotted"):
+            raise ValueError("segpack must be 'auto', 'dense' or 'slotted'")
 
     @property
     def words(self) -> int:
@@ -52,7 +76,9 @@ class SkmCounter(SortKmerCounter):
         self._rows_hw = 0          # verified high-water of rows_exact
         self._rows_eff_min = 0     # floor for the merge-mass ladder
         self._deltas = []          # last verified distinct-growth deltas
-        self.stats["slot_grow_events"] = 0   # run-row (rows_used > eff) replays
+        self._S = config.skm_slots # slotted layout: current slot budget
+        self.stats["slot_grow_events"] = 0   # run-row replays (rows_used > eff,
+                                             # or max_tile_runs > S)
         self.stats["finalize_seconds"] = 0.0
 
     # -- sizing --------------------------------------------------------------
@@ -101,29 +127,49 @@ class SkmCounter(SortKmerCounter):
     # -- device steps ----------------------------------------------------------
 
     def _dispatch(self, packed_d, sep_d, n: int, dense: bool):
+        """One superstep in the configured layout; ``step.eff`` is the
+        dense merge mass, or None on the slotted layout."""
         cfg = self.cfg
         prefix_in = self._sized_prefix(self._eff_for_dispatch(n))
-        cap = self._dense_cap(n)
-        eff = self._dense_eff(n, cap)
-        rows, rows_nd = skm.skm_segpack_dense_step(
-            packed_d, sep_d, k=cfg.k, n=n, cap=cap, dense=dense, kernels=cfg.kernels)
-        new_prefix, ndv = skm.skm_merge_dense_step(
-            rows, rows_nd, prefix_in, eff=eff, kernels=cfg.kernels)
+        if cfg.segpack == "slotted":
+            eff = None
+            rows, maxruns = skm.skm_segpack_step(
+                packed_d, sep_d, k=cfg.k, n=n, S=self._S, dense=dense, kernels=cfg.kernels)
+            new_prefix, ndv = skm.skm_merge_step(rows, maxruns, prefix_in,
+                                                 kernels=cfg.kernels)
+        else:
+            cap = self._dense_cap(n)
+            eff = self._dense_eff(n, cap)
+            rows, rows_nd = skm.skm_segpack_dense_step(
+                packed_d, sep_d, k=cfg.k, n=n, cap=cap, dense=dense, kernels=cfg.kernels)
+            new_prefix, ndv = skm.skm_merge_dense_step(
+                rows, rows_nd, prefix_in, eff=eff, kernels=cfg.kernels)
         self._inflight.append((ndv, _Step(packed_d, sep_d, n, dense, eff, prefix_in)))
         self.prefix = new_prefix
         self._final_cache = None
 
     def _rows_overflow(self, vals, step: _Step) -> bool:
-        """rows_used > eff: live rows were cut from the merge.  Raise the
-        merge-mass floor and replay this and every later superstep."""
-        rows_exact, rows_used = vals[2], vals[3]
-        if rows_used <= step.eff:
+        """Run rows were lost: on the dense layout rows_used > eff (live
+        rows cut from the merge), so the merge-mass floor rises; on the
+        slotted layout max_tile_runs > S (starts past S dropped), so S
+        doubles until it holds them (the S-ladder; 512 holds every start
+        of a tile).  Either way the superstep and every later one replay
+        from the pre-overflow store.  Every superstep in flight was
+        dispatched at the current S: a ladder step replays all of them."""
+        if step.eff is None:
+            maxruns = vals[2]
+            if maxruns <= self._S:
+                return False
+            while self._S < maxruns:
+                self._S = min(2 * self._S, cuda_skm.SLOT_TILE)
+        else:
+            rows_exact, rows_used = vals[2], vals[3]
             self._rows_hw = max(self._rows_hw, rows_exact)
-            return False
+            if rows_used <= step.eff:
+                return False
+            self._rows_eff_min = sortcount.next_store_size(max(rows_used, 2 * step.eff))
         steps = [step] + [s for (_, s) in self._inflight]
         self._inflight.clear()
-        self._rows_hw = max(self._rows_hw, rows_exact)
-        self._rows_eff_min = sortcount.next_store_size(max(rows_used, 2 * step.eff))
         self.stats["slot_grow_events"] += 1
         self.prefix = step.prefix_in
         self._replay_all(steps)
@@ -147,7 +193,8 @@ class SkmCounter(SortKmerCounter):
             return self._final_cache[1]
         t0 = time.perf_counter()
         run_cols = tuple(c[: self.n_used] for c in self.prefix)
-        out = skm.finalize_store(run_cols, self.cfg.k, kernels=self.cfg.kernels)
+        out = skm.finalize_store(run_cols, self.cfg.k, kernels=self.cfg.kernels,
+                                 **self._superstep_kwargs())
         self.stats["finalize_seconds"] += time.perf_counter() - t0  # nd read = synced
         self._final_cache = (tag, out)
         return out

@@ -144,6 +144,8 @@ class SortKmerCounter:
             "batches": 0,
             "compactions": 0,
             "grow_events": 0,
+            "replayed_supersteps": 0,   # dispatches again after any overflow
+                                        # (store working size, capacity, rows)
             "build_seconds": 0.0,    # count_file / count_codes wall time,
                                      # the final verification included
             "write_seconds": 0.0,    # write_output wall time (finalize included)
@@ -249,7 +251,7 @@ class SortKmerCounter:
         cfg = self.cfg
         eb = sortcount.embed_bits(cfg.k)
         prefix_in = self._sized_prefix(self._eff_for_dispatch(n))
-        kw = dict(k=cfg.k, n=n, dense=dense, kernels=cfg.kernels)
+        kw = dict(k=cfg.k, n=n, dense=dense, kernels=cfg.kernels, **self._superstep_kwargs())
         if cfg.compactor == "merge":
             new_prefix, ndv = sortcount.superstep_merged(packed_d, sep_d, prefix_in,
                                                          ebits=eb, **kw)
@@ -260,6 +262,14 @@ class SortKmerCounter:
             new_prefix, ndv = sortcount.superstep_plain(packed_d, sep_d, prefix_in, **kw)
         self._inflight.append((ndv, _Step(packed_d, sep_d, n, dense, 0, prefix_in)))
         self.prefix = new_prefix
+
+    def _superstep_kwargs(self) -> dict:
+        """Extra keyword arguments of the counting supersteps: the
+        two-pass Bloom counters (models/bloom_counter.py) pass their
+        second-stage filter here in pass 2 (``bloom``, ``hfn``).  The skm
+        pipeline applies them at finalize expansion instead, where
+        windows materialize."""
+        return {}
 
     def _sized_prefix(self, eff: int):
         """The store sliced, or padded with dead rows, to ``eff`` rows."""
@@ -285,6 +295,7 @@ class SortKmerCounter:
         self.stats["compactions"] += 1
 
     def _replay_all(self, steps):
+        self.stats["replayed_supersteps"] += len(steps)
         for s in steps:
             self._dispatch(s.packed, s.sep, s.n, s.dense)
             self._drain(keep=0)

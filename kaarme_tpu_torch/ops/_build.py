@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels (K1-K4) at first use.
+"""Build and load the package's CUDA kernels (K1-K5) at first use.
 
 ``nvcc`` compiles every ``csrc/*.cu`` file into an object, one process
 per file, all started together, and links them into ONE shared library
@@ -90,6 +90,8 @@ def _compile(out: str, srcs) -> None:
 def _bind(lib):
     lib.kt_skm_dense.argtypes = [_P, _I64, _I64, _I32, _P, _I64, _I64, _P, _P, _P]
     lib.kt_skm_dense.restype = _I32
+    lib.kt_skm_slotted.argtypes = [_P, _I64, _I64, _I32, _I32, _P, _I64, _P, _P, _P]
+    lib.kt_skm_slotted.restype = _I32
     lib.kt_segsum_compact.argtypes = [_P, _P, _I64, _I32, _I32, _I32, _P, _I64,
                                       _I64, _P, _P, _P]
     lib.kt_segsum_compact.restype = _I32

@@ -1,17 +1,34 @@
-"""K1: dense super-k-mer run segmentation — the counterpart of
-``kaarme_tpu/ops/pallas_skm.py::run_rows_dense_pallas``.
+"""K1 and K5: super-k-mer run segmentation — the counterparts of
+``kaarme_tpu/ops/pallas_skm.py::run_rows_dense_pallas`` (K1, dense run
+rows) and ``run_rows_slotted_pallas`` (K5, slotted run rows).
 
-``run_rows_dense`` launches the hand-written kernel
-(``csrc/skm_dense.cu``) on CUDA tensors and runs the plain PyTorch
-version, ``run_rows_dense_torch``, on CPU tensors.
+``run_rows_dense`` and ``run_rows_slotted`` launch the hand-written
+kernels (``csrc/skm_dense.cu``, ``csrc/skm_slotted.cu``, which share the
+segmentation ``csrc/skm_seg.cuh``) on CUDA tensors and run the plain
+PyTorch versions, ``run_rows_dense_torch`` and ``run_rows_slotted_torch``
+(which share ``_segment``), on CPU tensors.
 
-Contract (both): codes int32 [L >= n + k - 1] (bits 0-1 base, bit 2
+Dense contract (K1): codes int32 [L >= n + k - 1] (bits 0-1 base, bit 2
 invalid; positions past L read as invalid) -> (Wc + 1 int32 columns of
 ``cap`` rows: the span-masked content words and the meta word
 (ell-1) << 26 | 1 of every live run start, in stream order, then
 sentinels; int32 [rows_exact, rows_used]).  rows_used == rows_exact;
 rows_used > cap means the capacity overflowed: the first ``cap`` rows
 are written, nothing past them, and the caller replays larger.
+
+Slotted contract (K5): the same codes and run rows, laid out by slot
+tile: the windows fall into tiles of 512 numbered from the first window,
+and slot s of tile t (row t*S + s) holds the row of the tile's (s+1)-th
+run start.  Every start counts, dead (invalid) ones too, and a dead
+start's row is all-ones; slots past the tile's start count are all-ones
+and starts past S are dropped.  Returns (Wc + 1 int32 columns of
+ceil(n / 512) * S rows, int32 max_tile_runs); max_tile_runs > S means
+rows were dropped and the caller replays with a larger S.  Where n is a
+multiple of 512 this is the reference's ``run_rows`` + ``pack_slots``
+bit for bit.  Any n >= 1 is taken: the last tile is then partial, and
+no window at or past n is a start (the reference instead pads the tail
+superstep with invalid windows up to whole tiles, which adds one dead
+start to its last tile; the live rows are the same).
 """
 
 from __future__ import annotations
@@ -24,12 +41,18 @@ from .sortcount import i32
 M = 16          # minimizer m-mer length (one word)
 LMAX = 16       # run length cap (windows)
 EBITS = 26      # meta layout: (ell-1) << 26 | count
-_TILE = 1024    # windows per block of the kernel (skm_dense.cu)
+_TILE = 1024    # windows per block of the kernels (skm_seg.cuh)
+SLOT_TILE = 512 # windows per slot tile (K5)
 
 
 def content_words(k: int) -> int:
     """Wc: words covering a maximal run's LMAX + k - 1 bases."""
     return (LMAX + k - 1 + 15) // 16
+
+
+def slot_rows(n: int, S: int) -> int:
+    """K5's output rows for an n-window stream: S per slot tile."""
+    return -(-n // SLOT_TILE) * S
 
 
 def _check_inputs(codes, k, n, cap):
@@ -93,11 +116,12 @@ def _sliding_min(x: torch.Tensor, w: int) -> torch.Tensor:
     return y
 
 
-def run_rows_dense_torch(codes: torch.Tensor, *, k: int, n: int, cap: int):
-    """Plain PyTorch version of ``run_rows_dense`` (``skm.segment_runs`` +
-    ``run_rows`` of the reference, span-masked as the Pallas kernel does,
-    plus a stable live-row compaction in stream order)."""
-    _check_inputs(codes, k, n, cap)
+def _segment(codes: torch.Tensor, k: int, n: int):
+    """The reference's ``skm.segment_runs`` over windows 0 .. n + LMAX
+    (windows at or past n are starts: the stream end closes every run).
+    Returns (b, ell, valid, raw): bool run starts, int64 run length at
+    windows 0 .. n-1, bool validity, and int64 16-base m-words at every
+    position the content words read."""
     dev = codes.device
     Wc = content_words(k)
     w = k - M + 1
@@ -125,17 +149,87 @@ def run_rows_dense_torch(codes: torch.Tensor, *, k: int, n: int, cap: int):
     cand = torch.where(b, idx, 1 << 40)
     nxt = torch.cummin(cand.flip(0), 0).values.flip(0)     # first start >= i
     ell = (nxt[1: n + 1] - idx[:n]).clamp(1, LMAX)         # first start > i
+    return b, ell, valid, raw
 
-    starts = torch.nonzero((b & valid)[:n]).flatten()
-    rows_exact = int(starts.numel())
-    sel = starts[:cap]
+
+def _live_rows(raw, ell, sel, k: int) -> torch.Tensor:
+    """(Wc + 1, len(sel)) int32 run rows of the live starts ``sel``: the
+    span-masked content words, then the meta word (ell-1) << 26 | 1."""
+    Wc = content_words(k)
     e = ell[sel]
     span = e + (k - 1)
-    out = torch.full((Wc + 1, cap), -1, dtype=torch.int32, device=dev)
+    out = torch.empty((Wc + 1, sel.numel()), dtype=torch.int32, device=raw.device)
     for j in range(Wc):
         sh = 32 - 2 * (span - 16 * j).clamp(0, 16)      # keep the top 2*nb bits
         mask = (torch.full_like(sh, 0xFFFFFFFF) >> sh) << sh
-        out[j, : sel.numel()] = i32(raw[sel + 16 * j] & mask)
-    out[Wc, : sel.numel()] = i32(((e - 1) << EBITS) | 1)
-    rows = torch.tensor([rows_exact, rows_exact], dtype=torch.int32, device=dev)
+        out[j] = i32(raw[sel + 16 * j] & mask)
+    out[Wc] = i32(((e - 1) << EBITS) | 1)
+    return out
+
+
+def run_rows_dense_torch(codes: torch.Tensor, *, k: int, n: int, cap: int):
+    """Plain PyTorch version of ``run_rows_dense`` (``skm.segment_runs`` +
+    ``run_rows`` of the reference, span-masked as the Pallas kernel does,
+    plus a stable live-row compaction in stream order)."""
+    _check_inputs(codes, k, n, cap)
+    b, ell, valid, raw = _segment(codes, k, n)
+    starts = torch.nonzero((b & valid)[:n]).flatten()
+    rows_exact = int(starts.numel())
+    sel = starts[:cap]
+    out = torch.full((content_words(k) + 1, cap), -1, dtype=torch.int32, device=codes.device)
+    out[:, : sel.numel()] = _live_rows(raw, ell, sel, k)
+    rows = torch.tensor([rows_exact, rows_exact], dtype=torch.int32, device=codes.device)
     return tuple(out.unbind(0)), rows
+
+
+def _check_slots(S: int):
+    if not 1 <= S <= SLOT_TILE:
+        raise ValueError(f"S must be in [1, {SLOT_TILE}], got {S}")
+
+
+def run_rows_slotted(codes: torch.Tensor, *, k: int, n: int, S: int):
+    """Slotted run rows of an n-window stream (see the module docstring)."""
+    _check_inputs(codes, k, n, 0)
+    _check_slots(S)
+    if codes.device.type == "cpu":
+        return run_rows_slotted_torch(codes, k=k, n=n, S=S)
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    codes = codes.contiguous()
+    dev = codes.device
+    R = slot_rows(n, S)
+    with torch.cuda.device(dev):
+        out = torch.empty((content_words(k) + 1, R), dtype=torch.int32, device=dev)
+        scratch = torch.empty(-(-n // _TILE), dtype=torch.int64, device=dev)
+        maxruns = torch.empty(1, dtype=torch.int32, device=dev)
+        err = _build.lib().kt_skm_slotted(
+            codes.data_ptr(), codes.shape[0], n, k, S, out.data_ptr(), out.stride(0),
+            scratch.data_ptr(), maxruns.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "kt_skm_slotted")
+    run_rows_slotted.launches += 1
+    return tuple(out.unbind(0)), maxruns[0]
+
+
+run_rows_slotted.launches = 0
+
+
+def run_rows_slotted_torch(codes: torch.Tensor, *, k: int, n: int, S: int):
+    """Plain PyTorch version of ``run_rows_slotted``: the segmentation of
+    ``run_rows_dense_torch``, each start's ordinal in its tile by a
+    cumulative sum, and a scatter of the kept start rows into their
+    slots (the reference's ``pack_slots`` semantics, without its one-hot
+    matrix product)."""
+    _check_inputs(codes, k, n, 0)
+    _check_slots(S)
+    dev = codes.device
+    b, ell, valid, raw = _segment(codes, k, n)
+    starts = b[:n]
+    tile = torch.arange(n, device=dev) // SLOT_TILE
+    before = torch.cumsum(starts, 0) - starts.to(torch.int64)     # starts before each window
+    slot = before - before[::SLOT_TILE][tile]
+    runs = torch.bincount(tile[starts], minlength=-(-n // SLOT_TILE))
+    out = torch.full((content_words(k) + 1, slot_rows(n, S)), -1, dtype=torch.int32,
+                     device=dev)
+    sel = torch.nonzero(starts & valid[:n] & (slot < S)).flatten()
+    out[:, tile[sel] * S + slot[sel]] = _live_rows(raw, ell, sel, k)
+    return tuple(out.unbind(0)), runs.max().to(torch.int32)

@@ -1,12 +1,15 @@
 """Super-k-mer (minimizer-run) pipeline in PyTorch — the counterpart of
 ``kaarme_tpu/ops/skm.py``, the subset the main path runs.
 
-Per superstep: unpack the transfer chunk, segment it into dense run rows
-(K1, ``cuda_skm``), sort the run-store prefix ++ the new rows by their
-Wc + 1 words (``sortcount.lexsort``) and merge equal rows with the
-embedded-count segment-sum (K2, ``cuda_compact``, ebits = 26).  At
-finalize, every distinct run expands into its canonical k-mer keys,
-which are sorted and summed with K2's full_sum mode.
+Per superstep: unpack the transfer chunk, segment it into run rows —
+dense (K1) or slotted, S rows per 512-window tile (K5; ``cuda_skm``) —
+sort the run-store prefix ++ the new rows by their Wc + 1 words
+(``sortcount.lexsort``) and merge equal rows with the embedded-count
+segment-sum (K2, ``cuda_compact``, ebits = 26).  At finalize, every
+distinct run expands into its canonical k-mer keys, which are sorted and
+summed with K2's full_sum mode; with a Bloom filter, keys that miss it
+become sentinels first (the two-pass ``-b`` mode's gate on this
+pipeline).
 
 ``kernels`` ("cuda" or "plain") picks the hand-written kernels (their
 plain versions on CPU tensors) or the plain versions everywhere.
@@ -20,9 +23,9 @@ from kaarme_tpu.utils.codec import words_per_kmer
 
 from . import cuda_skm
 from .cuda_skm import EBITS, LMAX, M, content_words
-from .sortcount import (M32, _is_sentinel_i32, _kernel_finish, _pairrev32,
-                        compact_clamped, dead_fill, i32, lexsort, make_store,
-                        next_store_size, u32, unpack_codes, unpack_codes_sparse)
+from .sortcount import (M32, _bloom_miss_mask, _is_sentinel_i32, _kernel_finish,
+                        _pairrev32, codes_from_chunk, compact_clamped, dead_fill, i32,
+                        lexsort, make_store, next_store_size, u32)
 
 
 def store_words(k: int) -> int:
@@ -35,18 +38,27 @@ def supported(k: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Superstep: segmentation (K1) and merge (sort + K2)
+# Superstep: segmentation (K1 or K5) and merge (sort + K2)
 # ---------------------------------------------------------------------------
 
 def skm_segpack_dense_step(packed, sep, *, k: int, n: int, cap: int,
                            dense: bool = False, kernels: str = "cuda"):
     """Transfer chunk -> dense run rows (Wc+1 columns of ``cap`` rows)
     and int32 [rows_exact, rows_used]."""
-    L = n + k - 1
-    codes = unpack_codes(packed, sep, L) if dense else unpack_codes_sparse(packed, sep, L)
+    codes = codes_from_chunk(packed, sep, k=k, n=n, dense=dense)
     if kernels == "plain":
         return cuda_skm.run_rows_dense_torch(codes, k=k, n=n, cap=cap)
     return cuda_skm.run_rows_dense(codes, k=k, n=n, cap=cap)
+
+
+def skm_segpack_step(packed, sep, *, k: int, n: int, S: int, dense: bool = False,
+                     kernels: str = "cuda"):
+    """Transfer chunk -> slotted run rows (Wc+1 columns of
+    ceil(n / 512) * S rows) and int32 max_tile_runs (K5)."""
+    codes = codes_from_chunk(packed, sep, k=k, n=n, dense=dense)
+    if kernels == "plain":
+        return cuda_skm.run_rows_slotted_torch(codes, k=k, n=n, S=S)
+    return cuda_skm.run_rows_slotted(codes, k=k, n=n, S=S)
 
 
 def _merge_slotted(rows, extra, prefix, kernels: str):
@@ -61,7 +73,14 @@ def _merge_slotted(rows, extra, prefix, kernels: str):
     cols.append(torch.cat([prefix[w - 1] | prefix[-1], rows[w - 1]]))
     s = lexsort(cols, num_keys=w)
     out, ndv = _kernel_finish(s, cap, True, EBITS, kernels)
-    return out, torch.cat([ndv, extra.to(torch.int32)])
+    return out, torch.cat([ndv, extra.reshape(-1).to(torch.int32)])
+
+
+def skm_merge_step(slotted, maxruns, prefix, *, kernels: str = "cuda"):
+    """Merge slotted run rows into the run store.  Returns (the new
+    store, int32 [nd_exact, nd_used, max_tile_runs]); the caller replays
+    with a larger S when max_tile_runs > S (rows were dropped)."""
+    return _merge_slotted(slotted, maxruns, prefix, kernels)
 
 
 def skm_merge_dense_step(rows, rows_nd, prefix, *, eff: int, kernels: str = "cuda"):
@@ -122,29 +141,37 @@ def _expand_keys(cw, ell, k: int):
                  .masked_fill(dead, M32).reshape(-1) for wi in range(W))
 
 
-def expand_chunk(run_cols, k: int):
+def expand_chunk(run_cols, k: int, bloom=None, hfn: int = 0):
     """(Wc content cols, meta col, count col) -> W int32 key columns +
     int32 count column over R * LMAX rows, unsorted.  Dead run rows
-    (count 0) and slots past ell become sentinel keys with count 0."""
+    (count 0) and slots past ell become sentinel keys with count 0, and
+    so do keys that miss the Bloom filter ``bloom`` (int32 words, ``hfn``
+    bits per key) when one is given: a run row packs up to LMAX windows,
+    so the two-pass mode's per-window gate applies here, where windows
+    materialize."""
     *cw, meta, cnt = run_cols
     ell = ((u32(meta) >> EBITS) & 15) + 1
     keys = _expand_keys([u32(c) for c in cw], ell, k)
     dead = (cnt <= 0).repeat_interleave(LMAX)
     keys = tuple(i32(x.masked_fill(dead, M32)) for x in keys)
+    if bloom is not None:
+        miss = _bloom_miss_mask(bloom, keys, hfn)
+        keys = tuple(x | miss for x in keys)
     counts = cnt.repeat_interleave(LMAX) * (1 - _is_sentinel_i32(keys))
     return keys + (counts,)
 
 
-def _expand_compact(run_cols, k: int, kernels: str):
+def _expand_compact(run_cols, k: int, kernels: str, bloom=None, hfn: int = 0):
     """Single-shot finalize: expand every run row and sum equal keys."""
-    return compact_clamped(expand_chunk(run_cols, k), kernels)
+    return compact_clamped(expand_chunk(run_cols, k, bloom, hfn), kernels)
 
 
-def _expand_merge_at(acc, run_cols, start: int, *, k: int, chunk: int, kernels: str):
+def _expand_merge_at(acc, run_cols, start: int, *, k: int, chunk: int, kernels: str,
+                     bloom=None, hfn: int = 0):
     """Chunked finalize step: expand ``chunk`` run rows from ``start``
     and merge them into the accumulator (cut to its capacity)."""
     part = tuple(c[start: start + chunk] for c in run_cols)
-    rows = expand_chunk(part, k)
+    rows = expand_chunk(part, k, bloom, hfn)
     cap = acc[0].shape[0]
     store, ndv = compact_clamped(tuple(torch.cat([a, r]) for a, r in zip(acc, rows)),
                                  kernels)
@@ -152,9 +179,11 @@ def _expand_merge_at(acc, run_cols, start: int, *, k: int, chunk: int, kernels: 
 
 
 def finalize_store(run_store, k: int, chunk_rows: int = 1 << 20,
-                   single_shot_rows: "int | None" = None, kernels: str = "cuda"):
+                   single_shot_rows: "int | None" = None, kernels: str = "cuda",
+                   bloom=None, hfn: int = 0):
     """Expand the distinct run store (Wc content + meta + count columns,
-    int32 tensors) into a sorted k-mer store ON the store's device.
+    int32 tensors) into a sorted k-mer store ON the store's device,
+    dropping keys that miss the Bloom filter ``bloom`` when one is given.
     Returns (W key columns + count column, n_used); rows past n_used
     are sentinels with count 0.
 
@@ -170,7 +199,7 @@ def finalize_store(run_store, k: int, chunk_rows: int = 1 << 20,
         # one expand + compact holds ~3 sort generations of W+1 words
         single_shot_rows = min(1 << 26, (6 << 30) // ((W + 1) * 12))
     if R * LMAX <= single_shot_rows:
-        store, ndv = _expand_compact(run_store, k, kernels)
+        store, ndv = _expand_compact(run_store, k, kernels, bloom, hfn)
         return store, int(ndv[1])
 
     pad = (-R) % chunk_rows
@@ -182,7 +211,7 @@ def finalize_store(run_store, k: int, chunk_rows: int = 1 << 20,
     for s0 in range(0, R, chunk_rows):
         while True:
             new_acc, ndv = _expand_merge_at(acc, run_cols, s0, k=k, chunk=chunk_rows,
-                                            kernels=kernels)
+                                            kernels=kernels, bloom=bloom, hfn=hfn)
             nd = int(ndv[1])
             if nd <= acc[0].shape[0]:
                 acc = new_acc

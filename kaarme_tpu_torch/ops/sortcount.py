@@ -58,6 +58,13 @@ def unpack_codes_sparse(packed: torch.Tensor, sep_idx: torch.Tensor, n: int) -> 
     return x
 
 
+def codes_from_chunk(packed, sep, *, k: int, n: int, dense: bool) -> torch.Tensor:
+    """Transfer chunk (2-bit words + dense bitmap or separator list) ->
+    the n + k - 1 codes of an n-window superstep."""
+    L = n + k - 1
+    return unpack_codes(packed, sep, L) if dense else unpack_codes_sparse(packed, sep, L)
+
+
 # ---------------------------------------------------------------------------
 # Word helpers
 # ---------------------------------------------------------------------------
@@ -193,37 +200,45 @@ def _check_kernels(kernels: str):
 
 
 def window_keys_from_chunk(packed, sep, *, k: int, n: int, dense: bool = False,
-                           kernels: str = "cuda") -> tuple:
+                           kernels: str = "cuda", bloom=None, hfn: int = 0) -> tuple:
     """Transfer chunk -> the n canonical window keys, unsorted (W int32
-    columns; invalid windows are all-ones) — unpack, then K3.  The
-    counterpart of ``sortcount._keys_from_chunk``."""
+    columns; invalid windows are all-ones) — unpack, then K3.  With a
+    Bloom filter ``bloom`` (int32 words, ``hfn`` bits per key), keys
+    that miss it become all-ones too, so they drop out of the merge as
+    invalid windows do.  The counterpart of ``sortcount._keys_from_chunk``
+    plus the supersteps' ``_bloom_miss_mask`` gate."""
     from . import cuda_winkeys
 
     _check_kernels(kernels)
-    L = n + k - 1
-    codes = unpack_codes(packed, sep, L) if dense else unpack_codes_sparse(packed, sep, L)
+    codes = codes_from_chunk(packed, sep, k=k, n=n, dense=dense)
     fn = cuda_winkeys.window_keys if kernels == "cuda" else cuda_winkeys.window_keys_torch
-    return fn(codes, k, n)
+    keys = fn(codes, k, n)
+    if bloom is not None:
+        miss = _bloom_miss_mask(bloom, keys, hfn)
+        keys = tuple(x | miss for x in keys)
+    return keys
 
 
 def superstep_embedded(packed, sep, prefix, *, k: int, n: int, ebits: int,
-                       dense: bool = False, kernels: str = "cuda"):
+                       dense: bool = False, kernels: str = "cuda", bloom=None, hfn: int = 0):
     """Classic superstep with the count embedded in the trailing key
     word's low ``ebits`` (>= 21): window keys (|1, a count of one) ++
     the prefix (its count ORed into its last word), one W-column sort,
     K2 embedded.  Returns (W key columns + count column, each cut to the
     prefix capacity, int32 [nd_exact, nd_used]); nd > capacity means
-    the store overflowed."""
+    the store overflowed.  ``bloom``/``hfn``: the pass-2 gate of
+    ``window_keys_from_chunk``."""
     w = len(prefix) - 1
     cap = prefix[0].shape[0]
-    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels)
+    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
+                                  bloom=bloom, hfn=hfn)
     cols = [torch.cat([prefix[i], keys[i]]) for i in range(w - 1)]
     cols.append(torch.cat([prefix[w - 1] | prefix[-1], keys[w - 1] | 1]))
     return _kernel_finish(lexsort(cols, num_keys=w), cap, True, ebits, kernels)
 
 
 def superstep_plain(packed, sep, prefix, *, k: int, n: int, dense: bool = False,
-                    kernels: str = "cuda"):
+                    kernels: str = "cuda", bloom=None, hfn: int = 0):
     """Classic superstep for k without 21 free trailing-word bits: the
     count rides the sort as a separate column (not a sort key) and K2's
     full_sum mode sums each key's rows.  That is the reference's XLA
@@ -234,14 +249,15 @@ def superstep_plain(packed, sep, prefix, *, k: int, n: int, dense: bool = False,
     ``superstep_embedded``."""
     w = len(prefix) - 1
     cap = prefix[0].shape[0]
-    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels)
+    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
+                                  bloom=bloom, hfn=hfn)
     cols = [torch.cat([prefix[i], keys[i]]) for i in range(w)]
     cnt = torch.cat([prefix[-1], torch.ones(n, dtype=torch.int32, device=prefix[-1].device)])
     return _kernel_finish(lexsort(cols + [cnt], num_keys=w), cap, False, 0, kernels)
 
 
 def superstep_merged(packed, sep, prefix, *, k: int, n: int, ebits: int = 0,
-                     dense: bool = False, kernels: str = "cuda"):
+                     dense: bool = False, kernels: str = "cuda", bloom=None, hfn: int = 0):
     """Linear-merge superstep (``--compactor merge``): sort only the n
     window keys, then merge them with the already sorted, dense prefix
     in one linear pass fused with the compaction (K4).  Embedded layout
@@ -253,7 +269,8 @@ def superstep_merged(packed, sep, prefix, *, k: int, n: int, ebits: int = 0,
     w = len(prefix) - 1
     cap = prefix[0].shape[0]
     embedded = ebits >= 21
-    keys = list(window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels))
+    keys = list(window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
+                                       bloom=bloom, hfn=hfn))
     if embedded:
         keys[w - 1] = keys[w - 1] | 1
         a = torch.stack(list(prefix[:w - 1]) + [prefix[w - 1] | prefix[-1]])
@@ -264,6 +281,39 @@ def superstep_merged(packed, sep, prefix, *, k: int, n: int, ebits: int = 0,
     okeys, ocnt, ndv = fn(a, b, embedded=embedded, ebits=ebits if embedded else 0,
                           out_len=cap)
     return tuple(okeys.unbind(0)) + (ocnt,), ndv
+
+
+# ---------------------------------------------------------------------------
+# Two-pass Bloom prefilter on the sort backend
+# ---------------------------------------------------------------------------
+# The reference's -b mode: pass 1 streams the input through BF1/BF2 (seen
+# once / seen twice), pass 2 counts only windows whose key hits BF2.
+# Here a missing key turns into the all-ones sentinel row before the
+# sort, exactly like an invalid window (``window_keys_from_chunk``).
+
+def _bloom_miss_mask(bf2, keys, hfn: int) -> torch.Tensor:
+    """int32 all-ones where the key's hfn Bloom bits are NOT all set in
+    ``bf2``, else 0 (one gather per key: the blocked layout)."""
+    from .bloom import contains
+    from .hashing import hash_words64
+
+    r1, r2 = hash_words64(keys)
+    return torch.where(contains(bf2, r1, r2, hfn), 0, -1).to(torch.int32)
+
+
+def bloom_pass1_superstep(bf1, bf2, packed, sep, *, k: int, n: int, dense: bool = False,
+                          hfn: int = 4, kernels: str = "cuda"):
+    """Pass-1 superstep: unpack -> window keys (K3) -> BF1/BF2 insertion
+    of every valid window's root hash.  Returns (bf1, bf2,
+    new_in_first, new_in_second), the counters as int64 tensors."""
+    from .bloom import insert_batch
+    from .hashing import hash_words64
+
+    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels)
+    # invalid windows are all-ones in EVERY word; a canonical key never is
+    valid = _is_sentinel_i32(keys) == 0
+    r1, r2 = hash_words64(keys)
+    return insert_batch(bf1, bf2, r1, r2, valid, hfn)
 
 
 # ---------------------------------------------------------------------------

@@ -51,3 +51,10 @@ def store_from_numpy(cols, cap: int, device) -> tuple:
     fc = np.zeros(cap, np.int32)
     fc[:nd] = cnt
     return columns_to_torch(full + [fc], device)
+
+
+def bloom_to_torch(words, device) -> torch.Tensor:
+    """A JAX package Bloom filter stage (uint32 words, numpy or JAX)
+    -> the port's int32 word tensor on ``device``, bits unchanged."""
+    a = np.asarray(words).astype(np.uint32, copy=False).view(np.int32)
+    return torch.from_numpy(np.require(a, requirements=['C', 'W'])).to(device)

@@ -92,8 +92,37 @@ def test_classic_count_file_byte_identical_to_reference(tmp_path, k, extra, mode
     assert got == want
 
 
+@pytest.mark.parametrize("k,extra,mode,abu", [
+    (31, [], 2, 2), (51, [], 0, 1), (13, [], 2, 2),
+    (31, ["--pipeline", "classic"], 2, 2), (21, ["--pipeline", "classic"], 0, 2),
+    (13, ["--compactor", "merge"], 2, 2)])
+def test_bloom_count_file_byte_identical_to_reference(tmp_path, capsys, k, extra, mode, abu):
+    """-b -u: the two-pass Bloom prefilter on the skm and classic routes
+    (with the linear merge too); the JAX CLI runs its default compactor.
+    Singletons never reach the store, so the count file is the golden
+    count >= max(abu, 2)."""
+    p = _fasta(tmp_path, seed=k + 7 * mode)
+    a, b = tmp_path / "port.out", tmp_path / "ref.out"
+    common = [str(p), str(k), "-b", "-u", "4000", "-f", "0.02", "-m", str(mode),
+              "-a", str(abu)]
+    rc, counter = cli.run(common + extra + ["-o", str(a), "--device", "cpu"])
+    assert rc == 0
+    banner = capsys.readouterr().out
+    assert "using bloom filters:      yes" in banner and "est. unique k-mers:     4000" in banner
+    assert "false positive rate:    0.02" in banner
+    assert counter.bf1 is None and counter.stats["new_in_second"] > 0
+    ref_extra = [x for x in extra if x not in ("--compactor", "merge")]
+    assert ref_cli.main(common + ref_extra + ["-q", "-o", str(b)]) == 0
+    assert a.read_bytes() == b.read_bytes()
+    golden = codec.golden_count(io_reader.read_codes(str(p)), k)
+    clip = (lambda c: c & 0xFFFF) if mode == 0 else (lambda c: min(c, 16383))
+    want = {s: clip(c) for s, c in golden.items() if c >= 2 and clip(c) >= abu}
+    got = {ln.split()[0]: int(ln.split()[1]) for ln in a.read_text().splitlines()}
+    assert got == want
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["-b", "-u", "1000"], "Bloom"),
+    (["-b", "-u", "1000", "--backend", "table"], "Bloom"),
     (["--backend", "table"], "--backend table"),
     (["--devices", "2"], "--devices"),
 ])

@@ -63,6 +63,84 @@ def test_k1_writes_nothing_past_cap(dev):
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,S", [(16, 5000, 96), (31, 1 << 15, 16), (51, 1 << 20, 96),
+                                   (51, 777, 8), (101, 100_003, 512), (17, 1 << 16, 4)])
+def test_k5_kernel_equals_plain(dev, k, n, S):
+    """Slotted rows and max_tile_runs bit for bit; n = 777 and 100,003
+    end in a partial slot tile, and S = 4 (and 8, 16) overflow: the same
+    rows are dropped."""
+    c = _codes(n, k, seed=k + S)
+    if S == 4:
+        c[:] = np.random.default_rng(4).integers(0, 4, c.shape[0])   # minimizer churn
+    codes = torch.from_numpy(c).to(dev)
+    got = cuda_skm.run_rows_slotted(codes, k=k, n=n, S=S)
+    want = cuda_skm.run_rows_slotted_torch(codes, k=k, n=n, S=S)
+    torch.cuda.synchronize()
+    assert int(got[1]) == int(want[1])
+    if S <= 16:
+        assert int(want[1]) > S
+    assert len(got[0]) == len(want[0]) == cuda_skm.content_words(k) + 1
+    for a, b in zip(got[0], want[0]):
+        assert a.shape[0] == cuda_skm.slot_rows(n, S)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_slotted_counter_kernels_equal_plain_through_the_ladder(dev):
+    """SkmCounter(segpack="slotted", skm_slots=8) on the card: K5 runs on
+    every superstep (replays included), the S-ladder climbs, and the
+    dump equals the plain route's."""
+    from kaarme_tpu_torch.models.skm_counter import SkmCounter, SkmCounterConfig
+
+    rng = np.random.default_rng(8)
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    starts = rng.integers(0, 20_000 - 150, 3000)
+    reads = np.full((3000, 151), 4, np.uint8)
+    reads[:, :150] = genome[starts[:, None] + np.arange(150)]
+    codes = reads.reshape(-1)
+    kw = dict(k=31, min_abundance=1, batch_windows=1 << 15, superbatch_batches=2,
+              prefix_cap=1 << 16, segpack="slotted", skm_slots=8)
+    cuda_skm.run_rows_slotted.launches = 0
+    c = SkmCounter(SkmCounterConfig(device="cuda", **kw)).count_codes(codes)
+    assert c.stats["slot_grow_events"] > 0
+    assert (cuda_skm.run_rows_slotted.launches
+            == c.stats["batches"] + c.stats["replayed_supersteps"] > c.stats["batches"])
+    p = SkmCounter(SkmCounterConfig(device="cuda", kernels="plain", **kw)).count_codes(codes)
+    for a, b in zip(c.dump(), p.dump()):
+        assert np.array_equal(a, b)
+    assert int(c.dump()[1].sum()) == 3000 * (150 - 31 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,extra", [(13, []), (31, ["--pipeline", "classic"]),
+                                     (31, ["--pipeline", "classic", "--compactor", "merge"]),
+                                     (51, [])])
+def test_bloom_cli_kernels_equal_plain_route(dev, tmp_path, k, extra):
+    """-b -u on the card: pass 1 runs K3, pass 2 the route's kernels; the
+    count file equals --kernels plain and the -a 1 file without its
+    count-1 lines."""
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 30_000)
+    starts = rng.integers(0, 30_000 - 150, 2000)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "r.fa", "wb") as f:
+        for i, s0 in enumerate(starts):
+            f.write(b">r%d\n%s\n" % (i, lut[genome[s0:s0 + 150]].tobytes()))
+    argv = [str(tmp_path / "r.fa"), str(k), "-q"] + extra
+    a, b, c = tmp_path / "b.txt", tmp_path / "p.txt", tmp_path / "a1.txt"
+    cuda_winkeys.window_keys.launches = 0
+    assert cli.main(argv + ["-b", "-u", "40000", "-a", "2", "-o", str(a)]) == 0
+    assert cuda_winkeys.window_keys.launches > 0
+    assert cli.main(argv + ["-b", "-u", "40000", "-a", "2", "-o", str(b),
+                            "--kernels", "plain"]) == 0
+    assert a.read_bytes() == b.read_bytes()
+    assert cli.main(argv + ["-s", "100000", "-a", "1", "-o", str(c)]) == 0
+    want = b"".join(ln + b"\n" for ln in c.read_bytes().splitlines()
+                    if not ln.endswith(b" 1"))
+    assert a.read_bytes() == want
+
+
 def _sorted_rows(dev, W, N, embedded, seed):
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, 40, (W, N)).astype(np.int64)

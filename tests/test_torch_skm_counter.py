@@ -1,8 +1,9 @@
 """The super-k-mer slice of the PyTorch port end to end on the CPU
-(plain PyTorch versions of K1/K2), held exactly to the JAX package's
-``SkmCounter`` (Pallas kernels in interpret mode) and to
-``codec.golden_count``; grow-and-replay paths; ``.npz`` checkpoints in
-both directions; store conversion between the packages."""
+(plain PyTorch versions of K1/K2/K5), held exactly to the JAX package's
+``SkmCounter`` (Pallas kernels in interpret mode, or its XLA route on
+the slotted layout) and to ``codec.golden_count``; grow-and-replay paths
+and the slotted layout's S-ladder; ``.npz`` checkpoints in both
+directions; store conversion between the packages."""
 
 import numpy as np
 import pytest
@@ -51,6 +52,44 @@ def test_rows_overflow_replay(reads):
     c = _port(skm_cap_frac=4096).count_codes(codes)
     assert c.stats["slot_grow_events"] >= 1
     assert c.as_dict() == golden
+
+
+def test_slotted_matches_reference_and_golden_through_the_ladder(reads):
+    """segpack="slotted" (K5's layout) with S = 8: reads give tiles with
+    more starts than that, so the S-ladder replays; the dump equals the
+    JAX package's slotted counter (its XLA pack_slots route, same S)."""
+    codes, golden = reads
+    c = _port(segpack="slotted", skm_slots=8).count_codes(codes)
+    assert c.stats["slot_grow_events"] > 0 and c._S > 8
+    assert c.stats["replayed_supersteps"] >= c.stats["slot_grow_events"]
+    assert c.as_dict() == golden
+    ref = RefSkmCounter(RefSkmConfig(
+        k=31, batch_windows=1 << 16, rows=1 << 9, superbatch_batches=2,
+        prefix_cap=1 << 15, min_abundance=1, segpack="xla", skm_slots=8)).count_codes(codes)
+    for a, b in zip(c.dump(), ref.dump()):
+        np.testing.assert_array_equal(a, b)
+    assert c.n_distinct == ref.n_distinct          # distinct run rows
+    assert ref.stats["slot_grow_events"] > 0
+
+
+def test_slotted_store_growth_and_unaligned_tail():
+    """The slotted layout with store growth replays and a tail superstep
+    of no whole number of 512-window tiles (the port takes any n)."""
+    codes = make_reads(0.05, 3, 150, seed=2)
+    codes = codes[: codes.shape[0] - 333]
+    c = _port(segpack="slotted", batch_windows=1 << 12, superbatch_batches=1,
+              prefix_cap=1 << 12).count_codes(codes)
+    assert c.stats["grow_events"] >= 1
+    assert (codes.shape[0] - 30) % (1 << 12) % 512
+    assert c.as_dict() == codec.golden_count(codes, 31)
+
+
+@pytest.mark.parametrize("segpack", ["pallas", "xla", "dense_interpret", "bogus"])
+def test_segpack_names(segpack):
+    with pytest.raises(ValueError, match="kernels='plain'" if segpack != "bogus"
+                       else "segpack must be"):
+        _port(segpack=segpack)
+    assert _port(segpack="auto").cfg.segpack == "dense"
 
 
 def test_store_growth_replay(reads):
