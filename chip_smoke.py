@@ -7,9 +7,12 @@ Run from the repository root.  It builds the port's CUDA kernels from
 ``kaarme_tpu_torch/csrc`` (into ``build/``), then:
 
 1. K1 (dense run segmentation) at the skm path's shape (k=51, 2^26
-   windows of 150 bp reads with separators and N patches): kernel ==
-   plain PyTorch version, and an overflow case that must leave a guard
-   region past ``cap`` untouched;
+   windows of 150 bp reads with separators and N patches), from the
+   transfer chunk (2-bit words plus the separator list, and plus the
+   dense bitmap): kernel == plain PyTorch version (the unpack, then the
+   plain segmentation) in both formats, and an overflow case that must
+   leave a guard region past ``cap`` untouched; its time beside the
+   plain version's and its bound;
 2. K2 (segment-sum + compaction) in embedded mode at the run-store
    merge's shape (6 columns) and in full_sum mode at the finalize's
    shape (4 key columns + count): kernel == plain;
@@ -42,9 +45,16 @@ Run from the repository root.  It builds the port's CUDA kernels from
    ``-a 1`` file without its count-1 lines); each with the launch
    counters of its kernels > 0 and its peak device memory printed.
 
-Each phase raises on failure (non-zero exit).  The last lines are the
-kernel table as JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
+Each kernel phase also computes the kernel's bound at its shape: the
+least time the card could take, each input byte read once and each
+output byte written once at 3.35 TB/s against its 32-bit operations at
+67 T/s (H100 SXM data sheet).  The full-size skm run checks that K1 was
+launched once per superstep and replay.  Each phase raises on failure
+(non-zero exit).  The last lines are the kernel table as JSON (with
+each kernel's bound, its share and ``library_ms``: null, as no single
+PyTorch call computes any of these functions), the card's name and
+power limit, and {"ok": true, "device": {...}}.  Exits non-zero without
+a CUDA device, and where the port has imported jax or kaarme_tpu.
 """
 
 from __future__ import annotations
@@ -114,40 +124,103 @@ def read_stream(dev, genome_len: int, n_pos: int, read_len: int = 150, n_every=N
     return codes
 
 
+def chunk_of(codes):
+    """The transfer chunk of int32 codes (>= 4: invalid) as the host ships
+    it (``fastio.pack_stream`` and ``SortKmerCounter._prepare``): 2-bit
+    bases, base i at bits 2*(i%16) of word i/16, invalid positions as
+    base 0; the separator list; the dense bitmap, bit i%32 of word i/32.
+    All int32 tensors holding u32 bit patterns."""
+    import torch
+
+    L = codes.shape[0]
+    bad = codes >= 4
+    bases = torch.where(bad, 0, codes & 3).long()
+    bases = torch.cat([bases, bases.new_zeros((-L) % 16)]).view(-1, 16)
+    packed = (bases << (2 * torch.arange(16, device=codes.device))).sum(1).to(torch.int32)
+    bits = torch.cat([bad.long(), bad.new_zeros((-L) % 32).long()]).view(-1, 32)
+    mask = (bits << torch.arange(32, device=codes.device)).sum(1).to(torch.int32)
+    sep = torch.nonzero(bad).flatten().to(torch.int32)
+    return packed, sep, mask
+
+
+# H100 SXM peaks (NVIDIA's data sheet; the card's power limit is printed
+# beside them): HBM bytes/s, and the 32-bit vector rate (67 TFLOP/s
+# float32 outside the tensor cores) taken for the kernels' 32-bit integer
+# operations, whose own rate is no higher.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+
+def bound(inputs, outputs, ops: float) -> dict:
+    """The least time the card could take: each input byte read once,
+    each output byte written once, over the HBM rate, against ``ops``
+    32-bit operations over the vector rate; the larger sets the bound."""
+    nbytes = sum(t.numel() * t.element_size() for t in list(inputs) + list(outputs))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
+                "operations", bound_bytes=nbytes, bound_ops=ops)
+
+
+def timed(d: dict) -> dict:
+    """The kernel entry of the JSON line: its bound share (bound over
+    kernel time) and no library call (none computes these functions)."""
+    return dict(d, bound_share=d["bound_ms"] / d["ms"], library_ms=None)
+
+
 def phase_k1(dev):
+    """K1 from the transfer chunk at the skm path's shape, in both
+    formats, against its plain version (the unpack, then the plain
+    segmentation), with an overflow guard; its time beside the plain
+    version's and its bound."""
     import torch
     from kaarme_tpu_torch.ops import cuda_skm, sortcount
 
     L = N_WINDOWS + K - 1
-    codes = read_stream(dev, 4_600_000, L, n_every=100_003)
+    packed, sep, mask = chunk_of(read_stream(dev, 4_600_000, L, n_every=100_003))
     cap = sortcount.next_store_size(N_WINDOWS // 8)     # the counter's first capacity
-    got = cuda_skm.run_rows_dense(codes, k=K, n=N_WINDOWS, cap=cap)
-    want = cuda_skm.run_rows_dense_torch(codes, k=K, n=N_WINDOWS, cap=cap)
-    torch.cuda.synchronize()
-    rows = want[1].tolist()
-    if got[1].tolist() != rows or rows[0] > cap:
-        raise AssertionError(f"K1 rows {got[1].tolist()} vs plain {rows} (cap {cap})")
-    err = max_abs_err(got[0], want[0])
-    if err:
-        raise AssertionError(f"K1 kernel != plain (max abs err {err})")
-    # overflow: a capacity below the live rows; nothing may land past it
-    small, guard = rows[0] // 3, 4096
     Wc = cuda_skm.content_words(K)
-    out = torch.full((Wc + 1, small + guard), 0x5A5A5A5A, dtype=torch.int32, device=dev)
-    ocols, orows = cuda_skm.launch_dense(codes, K, N_WINDOWS, out, small)
-    torch.cuda.synchronize()
-    if orows.tolist() != rows:
-        raise AssertionError(f"K1 overflow rows {orows.tolist()} != {rows}")
-    if not bool((out[:, small:] == 0x5A5A5A5A).all()):
-        raise AssertionError("K1 wrote past cap")
-    err = max(err, max_abs_err(ocols, [c[:small] for c in want[0]]))
-    if err:
-        raise AssertionError("K1 overflow prefix != plain")
-    ms = cuda_ms(lambda: cuda_skm.run_rows_dense(codes, k=K, n=N_WINDOWS, cap=cap))
-    plain_ms = cuda_ms(lambda: cuda_skm.run_rows_dense_torch(codes, k=K, n=N_WINDOWS, cap=cap))
-    print(f"K1 skm_dense k={K} n={N_WINDOWS} cap={cap} rows={rows[0]} "
-          f"overflow cap={small}: guard intact; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), got
+    err, got = 0, None
+    for dense, s in ((False, sep), (True, mask)):
+        g = cuda_skm.run_rows_dense(packed, s, k=K, n=N_WINDOWS, cap=cap, dense=dense)
+        want = cuda_skm.run_rows_dense_plain(packed, s, k=K, n=N_WINDOWS, cap=cap, dense=dense)
+        torch.cuda.synchronize()
+        rows = want[1].tolist()
+        if g[1].tolist() != rows or rows[0] > cap:
+            raise AssertionError(f"K1 dense={dense} rows {g[1].tolist()} vs plain {rows} "
+                                 f"(cap {cap})")
+        err = max(err, max_abs_err(g[0], want[0]))
+        if err:
+            raise AssertionError(f"K1 dense={dense} kernel != plain (max abs err {err})")
+        # overflow: a capacity below the live rows; nothing may land past it
+        small, guard = rows[0] // 3, 4096
+        out = torch.full((Wc + 1, small + guard), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+        ocols, orows = cuda_skm.launch_dense(packed, s, K, N_WINDOWS, out, small, dense=dense)
+        torch.cuda.synchronize()
+        if orows.tolist() != rows:
+            raise AssertionError(f"K1 overflow rows {orows.tolist()} != {rows}")
+        if not bool((out[:, small:] == 0x5A5A5A5A).all()):
+            raise AssertionError("K1 wrote past cap")
+        err = max(err, max_abs_err(ocols, [c[:small] for c in want[0]]))
+        if err:
+            raise AssertionError("K1 overflow prefix != plain")
+        del want, out, ocols
+        got = got or g
+    run = lambda s, dense: cuda_skm.run_rows_dense(packed, s, k=K, n=N_WINDOWS, cap=cap,
+                                                   dense=dense)
+    ms = cuda_ms(lambda: run(sep, False))
+    dense_ms = cuda_ms(lambda: run(mask, True))
+    plain_ms = cuda_ms(lambda: cuda_skm.run_rows_dense_plain(packed, sep, k=K, n=N_WINDOWS,
+                                                             cap=cap))
+    # the sparse chunk in, every row of the Wc+1 columns and [rows] out;
+    # ~20 operations per window (m-word, validity, sliding minimum, starts)
+    b = bound([packed, sep], list(got[0]) + [got[1]], 20.0 * N_WINDOWS)
+    print(f"K1 skm_dense k={K} n={N_WINDOWS} cap={cap} rows={rows[0]} from the chunk "
+          f"({packed.numel()} packed words, {sep.numel()} separators / {mask.numel()} bitmap "
+          f"words): == plain in both formats, overflow cap={small}: guard intact; kernel "
+          f"{ms:.3f} ms sparse, {dense_ms:.3f} ms dense; codes_from_chunk + plain "
+          f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+          f"{b['bound_bytes']} bytes, {b['bound_ops']:.0f} operations)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, **b), got
 
 
 def phase_k2(dev, k1_out):
@@ -177,8 +250,11 @@ def phase_k2(dev, k1_out):
         raise AssertionError(f"K2 embedded kernel != plain (max abs err {err})")
     ms = cuda_ms(lambda: cuda_compact.segsum_compact(s, None, ebits=skm.EBITS))
     plain_ms = cuda_ms(lambda: cuda_compact.segsum_compact_torch(s, None, ebits=skm.EBITS))
+    # per row: compare with the successor's w words, one segmented add
+    b = bound([s], got, (w + 4.0) * s.shape[1])
     print(f"K2 segsum_compact embedded ebits=26: {w} cols x {s.shape[1]} rows, "
-          f"nd={n1}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"nd={n1}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
 
     # finalize shape: expand the distinct runs (count 2 each now) to k-mers
     runs = [c[:n1] for c in got[0]] + [got[1][:n1]]
@@ -193,10 +269,12 @@ def phase_k2(dev, k1_out):
         raise AssertionError(f"K2 full_sum kernel != plain (max abs err {ferr})")
     fms = cuda_ms(lambda: cuda_compact.segsum_compact(keys, cnt))
     fplain = cuda_ms(lambda: cuda_compact.segsum_compact_torch(keys, cnt))
+    fb = bound([keys, cnt], fgot, (keys.shape[0] + 4.0) * keys.shape[1])
     print(f"K2 segsum_compact full_sum: {keys.shape[0]}+1 cols x {keys.shape[1]} rows, "
-          f"nd={int(fwant[2][0])}; kernel {fms:.3f} ms, plain {fplain:.3f} ms")
+          f"nd={int(fwant[2][0])}; kernel {fms:.3f} ms, plain {fplain:.3f} ms, bound "
+          f"{fb['bound_ms']:.4f} ms ({fb['bound_by']})")
     return dict(max_abs_err=max(err, ferr), ms=ms, plain_ms=plain_ms,
-                full_sum_ms=fms, full_sum_plain_ms=fplain)
+                full_sum_ms=fms, full_sum_plain_ms=fplain, full_sum_bound_ms=fb["bound_ms"], **b)
 
 
 def phase_k3(dev):
@@ -220,9 +298,13 @@ def phase_k3(dev):
         del want
         ms = cuda_ms(lambda: cuda_winkeys.window_keys(first, k, N_WINDOWS))
         plain_ms = cuda_ms(lambda: cuda_winkeys.window_keys_torch(first, k, N_WINDOWS))
-        times[k] = (ms, plain_ms)
+        # per window and key word: build the forward and reverse-complement
+        # words (~4 operations each) and compare
+        b = bound([first], got, 10.0 * len(got) * N_WINDOWS)
+        times[k] = (ms, plain_ms, b)
         batches[k] = (got, cuda_winkeys.window_keys(nxt, k, N_WINDOWS))
-        print(f"K3 window_keys k={k} n={N_WINDOWS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        print(f"K3 window_keys k={k} n={N_WINDOWS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         del codes, first, nxt
     for n in (1 << 16, 100_003):
         codes = read_stream(dev, 4_600_000, n + 200, n_every=9_973)
@@ -232,9 +314,9 @@ def phase_k3(dev):
             raise AssertionError(f"K3 k=201 n={n} kernel != plain (max abs err {e})")
         err = max(err, e)
         print(f"K3 window_keys k=201 n={n}: kernel == plain")
-    ms, plain_ms = times[51]
+    ms, plain_ms, b = times[51]
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, k13_ms=times[13][0],
-                k13_plain_ms=times[13][1]), batches
+                k13_plain_ms=times[13][1], k13_bound_ms=times[13][2]["bound_ms"], **b), batches
 
 
 def phase_k4(dev, batches):
@@ -279,10 +361,13 @@ def phase_k4(dev, batches):
                                                       ebits=eb if emb else 0, out_len=cap))
         plain_ms = cuda_ms(lambda: cuda_merge.merge_compact_torch(
             a, b, embedded=emb, ebits=eb if emb else 0, out_len=cap))
-        out[k] = (ms, plain_ms)
+        # per merged row: a merge-path comparison of W words, then K2's
+        kb = bound([a, b], got, (2.0 * W + 4.0) * (a.shape[1] + b.shape[1]))
+        out[k] = (ms, plain_ms, kb)
         print(f"K4 merge_compact k={k} {'embedded' if emb else 'separate count'}: "
               f"{a.shape[0]} x {cap} prefix rows (nd {int(nd1[0])}) + {W} x {N_WINDOWS} "
-              f"batch rows -> nd {nd[0]}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"batch rows -> nd {nd[0]}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{kb['bound_ms']:.4f} ms ({kb['bound_by']})")
         if emb:
             # overflow: a capacity below nd; nothing may land past it
             small, guard = nd[0] // 3, 4096
@@ -310,16 +395,19 @@ def phase_k4(dev, batches):
                 raise AssertionError(f"K2 full_sum (classic) kernel != plain (err {e})")
             fms = cuda_ms(lambda: cuda_compact.segsum_compact(keys, c, out_len=cap))
             fplain = cuda_ms(lambda: cuda_compact.segsum_compact_torch(keys, c, out_len=cap))
-            out["k2"] = (fms, fplain)
+            fb = bound([keys, c], fgot, (keys.shape[0] + 4.0) * keys.shape[1])
+            out["k2"] = (fms, fplain, fb)
             print(f"K2 segsum_compact full_sum (classic k=13 superstep): 1+1 cols x "
                   f"{keys.shape[1]} rows, nd={fwant[2].tolist()[0]}; kernel {fms:.3f} ms, "
-                  f"plain {fplain:.3f} ms")
+                  f"plain {fplain:.3f} ms, bound {fb['bound_ms']:.4f} ms ({fb['bound_by']})")
             del s, keys, c, fgot, fwant
         del a, b, got, want, pk, pc, nxt
         torch.cuda.empty_cache()
     k4 = dict(max_abs_err=err, ms=out[51][0], plain_ms=out[51][1],
-              k13_ms=out[13][0], k13_plain_ms=out[13][1])
-    return k4, dict(classic_full_sum_ms=out["k2"][0], classic_full_sum_plain_ms=out["k2"][1])
+              k13_ms=out[13][0], k13_plain_ms=out[13][1], k13_bound_ms=out[13][2]["bound_ms"],
+              **out[51][2])
+    return k4, dict(classic_full_sum_ms=out["k2"][0], classic_full_sum_plain_ms=out["k2"][1],
+                    classic_full_sum_bound_ms=out["k2"][2]["bound_ms"])
 
 
 def phase_k5(dev):
@@ -331,7 +419,7 @@ def phase_k5(dev):
     from kaarme_tpu_torch.ops import cuda_skm
 
     codes = read_stream(dev, 4_600_000, N_WINDOWS + K - 1, n_every=100_003)
-    err, ms, plain_ms = 0, None, None
+    err, ms, plain_ms, b = 0, None, None, None
     for n, S in ((N_WINDOWS, 96), (N_WINDOWS, 16), (N_WINDOWS // 3 + 77, 96)):
         got = cuda_skm.run_rows_slotted(codes, k=K, n=n, S=S)
         want = cuda_skm.run_rows_slotted_torch(codes, k=K, n=n, S=S)
@@ -347,10 +435,12 @@ def phase_k5(dev):
         if n == N_WINDOWS and S == 96:
             ms = cuda_ms(lambda: cuda_skm.run_rows_slotted(codes, k=K, n=n, S=S))
             plain_ms = cuda_ms(lambda: cuda_skm.run_rows_slotted_torch(codes, k=K, n=n, S=S))
-            what += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            b = bound([codes[:n + K - 1]], list(got[0]) + [got[1]], 20.0 * n)
+            what += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                     f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
         print(f"K5 skm_slotted k={K} n={n} S={S}: {what}; kernel == plain")
         del got, want
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
 
 
 def write_reads_fasta(path, genome_len: int, coverage: int, read_len: int = 150,
@@ -532,8 +622,15 @@ def phase_full(tmp):
     distinct = counter.distinct_kmers()
     if distinct != DISTINCT_K51:
         raise AssertionError(f"k={K}: {distinct} distinct, expected {DISTINCT_K51}")
+    st = counter.stats
+    k1 = skm_launches["skm_dense"]
+    if k1 != st["batches"] + st["replayed_supersteps"]:
+        raise AssertionError(f"skm: K1 launched {k1} times for {st['batches']} supersteps and "
+                             f"{st['replayed_supersteps']} replays")
     print(f"full size k={K} skm: distinct {distinct}, sum of counts {int(cnt.sum())} == "
-          f"valid windows; run-row overflow events {counter.stats['slot_grow_events']}")
+          f"valid windows; run-row overflow events {st['slot_grow_events']}; K1 launched on "
+          f"every superstep: {k1} launches = {st['batches']} supersteps + "
+          f"{st['replayed_supersteps']} replayed")
     del counter
     run_full(argv + ["-o", out("skm_plain"), "--kernels", "plain"], f"k={K} skm, plain")
     same_file(out("skm"), out("skm_plain"), f"k={K} skm kernels == plain")
@@ -647,27 +744,28 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_small(tmp)
         launches = phase_full(tmp)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    leaked = [m for m in sys.modules if m in ("jax", "kaarme_tpu") or m.startswith("kaarme_tpu.")]
+    if leaked:
+        raise AssertionError(f"the port imported {leaked}")
 
     table = {"kernels": [
         dict(name="skm_dense", route="cuda", source="kaarme_tpu_torch/csrc/skm_dense.cu",
              replaces="kaarme_tpu/ops/pallas_skm.py:564", launches=launches["skm_dense"],
-             **k1),
+             **timed(k1)),
         dict(name="segsum_compact", route="cuda",
              source="kaarme_tpu_torch/csrc/segsum_compact.cu",
              replaces="kaarme_tpu/ops/pallas_compact.py:520",
-             launches=launches["segsum_compact"], **k2),
+             launches=launches["segsum_compact"], **timed(k2)),
         dict(name="window_keys", route="cuda", source="kaarme_tpu_torch/csrc/winkeys.cu",
              replaces="kaarme_tpu/ops/pallas_winkeys.py:136",
-             launches=launches["window_keys"], **k3),
+             launches=launches["window_keys"], **timed(k3)),
         dict(name="merge_compact", route="cuda",
              source="kaarme_tpu_torch/csrc/merge_compact.cu",
              replaces="kaarme_tpu/ops/pallas_merge.py:363",
-             launches=launches["merge_compact"], **k4),
+             launches=launches["merge_compact"], **timed(k4)),
         dict(name="skm_slotted", route="cuda", source="kaarme_tpu_torch/csrc/skm_slotted.cu",
              replaces="kaarme_tpu/ops/pallas_skm.py:378", launches=launches["skm_slotted"],
-             **k5),
+             **timed(k5)),
     ]}
     print(json.dumps(table))
     print(smi)

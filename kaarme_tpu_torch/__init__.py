@@ -10,9 +10,14 @@ Layout
 - ``models``   streaming counters (``SortKmerCounter``: the classic
                pipeline and the base of ``SkmCounter``)
 - ``ops``      PyTorch ops of the pipelines and the wrappers of the CUDA
-               kernels (K1 ``cuda_skm``, K2 ``cuda_compact``, K3
+               kernels (K1 and K5 ``cuda_skm``, K2 ``cuda_compact``, K3
                ``cuda_winkeys``, K4 ``cuda_merge``; ``_build`` compiles
                ``csrc/*.cu`` with nvcc at first use)
-- ``io``       host 2-bit packing
-- ``utils``    device resolution, store conversion between the packages
+- ``io``       the host input layer: format sniffing, chunked (gzip)
+               reading, encoding and 2-bit packing; its native encoder
+               (``csrc/host/_fastio.cpp``) is built by g++ at first use
+- ``utils``    the 2-bit codec, Bloom sizing, device resolution, store
+               conversion between the packages
+
+It imports torch and numpy, never jax and nothing of ``kaarme_tpu``.
 """

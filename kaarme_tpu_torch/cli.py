@@ -18,17 +18,68 @@ are refused with a "not yet ported" error.
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
 
-from kaarme_tpu import cli as _ref_cli
 
-
-def build_parser():
-    p = _ref_cli.build_parser()
-    p.prog = "kaarme_tpu_torch"
-    p.description = "Space-efficient k-mer counter (PyTorch / CUDA port)"
+def build_parser() -> argparse.ArgumentParser:
+    """The reference CLI surface (reference: main.cpp:127-156), as
+    ``kaarme_tpu/cli.py`` builds it, plus ``--device`` and ``--kernels``."""
+    p = argparse.ArgumentParser(
+        prog="kaarme_tpu_torch", description="Space-efficient k-mer counter (PyTorch / CUDA port)"
+    )
+    p.add_argument("INPUT", help="Input file (automatic format detection)")
+    p.add_argument("KLEN", type=int, help="k-mer length")
+    p.add_argument("-m", "--hash-table-type", type=int, default=2, choices=(0, 1, 2),
+                   help="Hash table type: 0 for plain and 2 for kaarme (def. 2). "
+                        "1 (the reference's undocumented legacy variant of the "
+                        "kaarme table with identical counting semantics — "
+                        "SURVEY.md section 2.3) is accepted as an alias for 2.")
+    p.add_argument("-a", "--min-k-abu", type=int, default=2,
+                   help="Minimum abundance threshold for the output k-mers (def. 2)")
+    p.add_argument("-t", "--threads", type=int, default=3,
+                   help="Number of working threads (def. 3; sizes host prefetch)")
+    p.add_argument("-o", "--output-file", default="",
+                   help="Output file where the k-mer counts will be stored")
+    p.add_argument("-b", "--use-bfilter", action="store_true",
+                   help="Use bloom filters to discard unique k-mers")
+    p.add_argument("-f", "--bfilter-fpr", type=float, default=0.01,
+                   help="Bloom filter false positive rate (def. 0.01)")
+    p.add_argument("-s", "--hash-tab-size", type=int, default=None, help="Hash table size")
+    p.add_argument("-u", "--unq-kmers", type=int, default=None,
+                   help="Estimated number of unique k-mers")
+    p.add_argument("--devices", type=int, default=0,
+                   help="Shard the table over this many devices (0 = single device)")
+    p.add_argument("--backend", choices=("sort", "table"), default="sort",
+                   help="Counting backend: 'sort' (flagship sort/segment-reduce "
+                        "pipeline, fastest on TPU; -b runs the two-pass Bloom "
+                        "prefilter on it) or 'table' (EXPERIMENTAL batched "
+                        "open-addressing probe table — a correctness oracle, "
+                        "orders of magnitude slower than 'sort') (def. sort)")
+    p.add_argument("--compactor", default="auto",
+                   choices=("auto", "pallas", "xla", "interpret", "merge",
+                            "merge_interpret"),
+                   help="Sort-backend superstep variant: auto (Pallas compact "
+                        "kernel on TPU, XLA elsewhere), merge (linear "
+                        "run-merge kernel — sorts only the batch and streams "
+                        "the prefix), or explicit overrides (def. auto)")
+    p.add_argument("--pipeline", choices=("auto", "classic", "skm"),
+                   default="auto",
+                   help="Sort-backend counting pipeline: 'skm' deduplicates "
+                        "minimizer runs (super-k-mers) before sorting "
+                        "(faster; requires k >= 16); 'classic' sorts one "
+                        "row per window; 'auto' picks skm when eligible "
+                        "(def. auto)")
+    p.add_argument("-q", "--quiet", action="store_true", help="Suppress the settings banner")
+    p.add_argument("--query", action="store_true",
+                   help="After counting, read k-mers from stdin and print their "
+                        "counts (0 = absent, -1 = malformed) — the reference's "
+                        "interactive point-lookup loop")
+    p.add_argument("--histo", default="",
+                   help="Also write a k-mer abundance spectrum (count -> #distinct "
+                        "k-mers, one 'COUNT N' line each) to this file")
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default; an error without a card) "
                         "or 'cpu' (plain PyTorch path)")
@@ -38,8 +89,43 @@ def build_parser():
     return p
 
 
+def _validate_reference(args) -> str:
+    """``kaarme_tpu/cli.py``'s checks, messages and ``--pipeline auto``
+    resolution (reference: main.cpp:144-151 for -s/-u/-b/-f)."""
+    if args.KLEN < 2:
+        return "KLEN must be >= 2"
+    if (args.hash_tab_size is None) == (args.unq_kmers is None):
+        return "exactly one of -s/--hash-tab-size or -u/--unq-kmers is required"
+    if args.use_bfilter and args.unq_kmers is None:
+        return "-b/--use-bfilter requires -u/--unq-kmers"
+    if args.unq_kmers is not None and not args.use_bfilter:
+        return "-u/--unq-kmers requires -b/--use-bfilter"
+    if not (3 <= args.threads <= 64):
+        return "-t/--threads must be in [3, 64]"
+    if not (0.001 <= args.bfilter_fpr <= 0.999):
+        return "-f/--bfilter-fpr must be in [0.001, 0.999]"
+    # reject silently-ignored flag combinations instead of overriding by
+    # dispatch order (the sharded path has no table backend or Bloom pass)
+    if args.devices > 1 and args.backend == "table":
+        return "--backend table does not support --devices; use the sort backend"
+    if args.devices > 1 and args.use_bfilter:
+        return "-b/--use-bfilter does not support --devices yet"
+    if args.pipeline == "auto":
+        # skm when eligible: k >= 16, sort backend
+        args.pipeline = "skm" if (args.KLEN >= 16
+                                  and args.backend == "sort") else "classic"
+    if args.pipeline == "skm":
+        if args.KLEN < 16:
+            return "--pipeline skm requires KLEN >= 16"
+        if args.backend != "sort":
+            return "--pipeline skm supports only the sort backend"
+    if not os.path.isfile(args.INPUT):
+        return f"input file {args.INPUT} does not exist"
+    return ""
+
+
 def validate(args) -> str:
-    err = _ref_cli.validate(args)
+    err = _validate_reference(args)
     if err:
         return err
     if args.backend != "sort":
@@ -75,8 +161,7 @@ def run(argv=None):
         print(f"error: {err}", file=sys.stderr)
         return 1, None
 
-    from kaarme_tpu.io.reader import FormatError, sniff_format
-
+    from .io.reader import FormatError, sniff_format
     from .models import bloom_counter
     from .models.skm_counter import SkmCounter, SkmCounterConfig
     from .models.sort_counter import SortCounterConfig, SortKmerCounter
@@ -154,9 +239,8 @@ def run(argv=None):
         # point lookups: dump once, binary-search per stdin line
         import numpy as np
 
-        from kaarme_tpu.utils import codec
-
         from .ops.sortcount import lookup_sorted
+        from .utils import codec
 
         tk, cn = counter.dump()
         for line in sys.stdin:

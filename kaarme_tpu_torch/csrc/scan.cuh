@@ -1,11 +1,12 @@
-// Block-level scan helpers shared by the K1 and K2 kernels.
+// Block-level scan helpers shared by the kernels of this package.
 //
-// Every kernel of this package is a multi-pass design: a per-tile pass
-// produces one aggregate per tile, ONE block scans the tile aggregates
-// in place (scan_tiles_kernel), and a second per-tile pass consumes the
-// exclusive prefix.  This replaces the carries that the TPU kernels kept
-// in SMEM across their sequential grid: on Hopper the blocks run in no
-// order, so every cross-tile carry becomes a scan over tiles.
+// The TPU kernels kept their carries in SMEM across a sequential grid; on
+// Hopper the blocks run in no order, so every cross-tile carry becomes a
+// scan over tiles.  K2, K4 and K5 are multi-pass: a per-tile pass
+// produces one aggregate per tile, ONE block scans the tile aggregates in
+// place (scan_tiles_kernel), and a second per-tile pass consumes the
+// exclusive prefix.  K1 chains its scans in one pass with decoupled
+// look-back (skm_dense.cu).
 #pragma once
 
 #include <cstdint>

@@ -1,6 +1,7 @@
-// Super-k-mer run segmentation shared by K1 (skm_dense.cu) and K5
-// (skm_slotted.cu): the counterpart of the front half that the TPU
-// kernels share, kaarme_tpu/ops/pallas_skm.py::_seg_rows_block.
+// Super-k-mer run segmentation of K5 (skm_slotted.cu) from int32 codes:
+// the counterpart of the front half that the TPU kernels share,
+// kaarme_tpu/ops/pallas_skm.py::_seg_rows_block.  (K1, skm_dense.cu,
+// segments from the transfer chunk in one pass of its own.)
 //
 // Per window position of an n-window stream: the 16-base big-endian
 // m-word, the window's validity (no invalid base in [i, i+k)), its

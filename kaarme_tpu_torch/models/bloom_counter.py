@@ -27,11 +27,10 @@ import time
 
 import numpy as np
 
-from kaarme_tpu.io import reader as io_reader
-from kaarme_tpu.utils.mathutils import bloom_sizing
-
+from ..io import reader as io_reader
 from ..ops import bloom as bloom_ops
 from ..ops import sortcount
+from ..utils.mathutils import bloom_sizing
 from .skm_counter import SkmCounter
 from .sort_counter import SortKmerCounter
 

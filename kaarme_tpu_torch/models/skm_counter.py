@@ -26,9 +26,8 @@ import time
 
 import numpy as np
 
-from kaarme_tpu.utils import codec
-
 from ..ops import cuda_skm, skm, sortcount
+from ..utils import codec
 from .sort_counter import SortCounterConfig, SortKmerCounter, _Step, live_rows_to_host
 
 _JAX_SEGPACKS = ("pallas", "pallas_interpret", "dense_interpret", "xla")

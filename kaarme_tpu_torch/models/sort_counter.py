@@ -28,12 +28,10 @@ import time
 import numpy as np
 import torch
 
-from kaarme_tpu.io import codebuf
-from kaarme_tpu.io import reader as io_reader
-from kaarme_tpu.utils import codec
-
-from ..io import fastio
+from ..io import codebuf, fastio
+from ..io import reader as io_reader
 from ..ops import sortcount
+from ..utils import codec
 from ..utils.device import resolve_device
 
 _Step = collections.namedtuple("_Step", "packed sep n dense eff prefix_in")

@@ -3,20 +3,27 @@
 rows) and ``run_rows_slotted_pallas`` (K5, slotted run rows).
 
 ``run_rows_dense`` and ``run_rows_slotted`` launch the hand-written
-kernels (``csrc/skm_dense.cu``, ``csrc/skm_slotted.cu``, which share the
+kernels (``csrc/skm_dense.cu``; ``csrc/skm_slotted.cu`` on the
 segmentation ``csrc/skm_seg.cuh``) on CUDA tensors and run the plain
-PyTorch versions, ``run_rows_dense_torch`` and ``run_rows_slotted_torch``
+PyTorch versions, ``run_rows_dense_plain`` and ``run_rows_slotted_torch``
 (which share ``_segment``), on CPU tensors.
 
-Dense contract (K1): codes int32 [L >= n + k - 1] (bits 0-1 base, bit 2
-invalid; positions past L read as invalid) -> (Wc + 1 int32 columns of
+Dense contract (K1): the transfer chunk of an n-window superstep —
+``packed`` int32 [>= ceil(L / 16)] 2-bit bases (base i at bits 2*(i%16)
+of word i/16) and ``sep``, the invalid positions as int32 indices (the
+separator list; entries outside [0, L) are dropped) or, with ``dense``,
+as an int32 [>= ceil(L / 32)] bitmap (bit i%32 of word i/32), L = n + k
+- 1; positions at or past L are invalid — to (Wc + 1 int32 columns of
 ``cap`` rows: the span-masked content words and the meta word
 (ell-1) << 26 | 1 of every live run start, in stream order, then
-sentinels; int32 [rows_exact, rows_used]).  rows_used == rows_exact;
+sentinels; int32 [rows_exact, rows_used]).  Its definition is
+``run_rows_dense_torch(codes_from_chunk(packed, sep, ...))``, whose codes
+are int32 [L] (bits 0-1 base, bit 2 invalid).  rows_used == rows_exact;
 rows_used > cap means the capacity overflowed: the first ``cap`` rows
 are written, nothing past them, and the caller replays larger.
 
-Slotted contract (K5): the same codes and run rows, laid out by slot
+Slotted contract (K5): codes as ``run_rows_dense_torch`` takes them and
+the same run rows, laid out by slot
 tile: the windows fall into tiles of 512 numbered from the first window,
 and slot s of tile t (row t*S + s) holds the row of the tile's (s+1)-th
 run start.  Every start counts, dead (invalid) ones too, and a dead
@@ -36,12 +43,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .sortcount import i32
+from .sortcount import codes_from_chunk, i32
 
 M = 16          # minimizer m-mer length (one word)
 LMAX = 16       # run length cap (windows)
 EBITS = 26      # meta layout: (ell-1) << 26 | count
-_TILE = 1024    # windows per block of the kernels (skm_seg.cuh)
+_TILE = 1024    # windows per block of K5 (skm_seg.cuh), for its scratch
 SLOT_TILE = 512 # windows per slot tile (K5)
 
 
@@ -66,37 +73,57 @@ def _check_inputs(codes, k, n, cap):
         raise ValueError("cap must be >= 0")
 
 
-def run_rows_dense(codes: torch.Tensor, *, k: int, n: int, cap: int):
-    """Dense run rows of an n-window stream (see the module docstring)."""
-    _check_inputs(codes, k, n, cap)
-    if codes.device.type == "cpu":
-        return run_rows_dense_torch(codes, k=k, n=n, cap=cap)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
-    out = torch.empty((content_words(k) + 1, cap), dtype=torch.int32,
-                      device=codes.device)
-    return launch_dense(codes, k, n, out, cap)
+def _check_chunk(packed, sep, k, n, cap, dense):
+    if k < M:
+        raise ValueError(f"skm segmentation requires k >= {M}")
+    for name, t in (("packed", packed), ("sep", sep)):
+        if t.dim() != 1 or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be a 1-D int32 tensor")
+    if packed.device != sep.device:
+        raise ValueError("packed and sep must be on one device")
+    L = n + k - 1
+    if n < 1 or packed.shape[0] * 16 < L:
+        raise ValueError(f"packed must hold n + k - 1 = {L} bases")
+    if dense and sep.shape[0] * 32 < L:
+        raise ValueError(f"the dense bitmap must cover n + k - 1 = {L} positions")
+    if cap < 0:
+        raise ValueError("cap must be >= 0")
 
 
-def launch_dense(codes: torch.Tensor, k: int, n: int, out: torch.Tensor, cap: int):
+def run_rows_dense(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, cap: int,
+                   dense: bool = False):
+    """Dense run rows of an n-window stream straight from its transfer
+    chunk (see the module docstring)."""
+    _check_chunk(packed, sep, k, n, cap, dense)
+    if packed.device.type == "cpu":
+        return run_rows_dense_plain(packed, sep, k=k, n=n, cap=cap, dense=dense)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    out = torch.empty((content_words(k) + 1, cap), dtype=torch.int32, device=packed.device)
+    return launch_dense(packed, sep, k, n, out, cap, dense=dense)
+
+
+def launch_dense(packed: torch.Tensor, sep: torch.Tensor, k: int, n: int, out: torch.Tensor,
+                 cap: int, *, dense: bool = False):
     """Launch K1 into ``out`` ((Wc+1, ld) int32 on the card, ld >= cap):
     rows [0, cap) of every column are written, columns past ``cap`` are
     not touched.  Returns (the Wc+1 columns [:cap], rows)."""
-    _check_inputs(codes, k, n, cap)
+    _check_chunk(packed, sep, k, n, cap, dense)
     if (out.dtype != torch.int32 or out.dim() != 2
             or out.shape[0] != content_words(k) + 1 or out.shape[1] < cap
-            or out.stride(1) != 1 or out.device != codes.device):
+            or out.stride(1) != 1 or out.device != packed.device):
         raise ValueError("out must be an int32 (Wc+1, >= cap) row-major tensor "
-                         "on the codes' device")
-    codes = codes.contiguous()
-    dev = codes.device
+                         "on the chunk's device")
+    packed, sep = packed.contiguous(), sep.contiguous()
+    dev = packed.device
     with torch.cuda.device(dev):
-        nt = -(-n // _TILE)
-        scratch = torch.empty(2 * nt + 1, dtype=torch.int64, device=dev)
+        lib = _build.lib()
+        scratch = torch.empty(lib.kt_skm_dense_scratch(n, n + k - 1, int(dense)),
+                              dtype=torch.int64, device=dev)
         rows = torch.empty(2, dtype=torch.int32, device=dev)
-        err = _build.lib().kt_skm_dense(
-            codes.data_ptr(), codes.shape[0], n, k, out.data_ptr(), cap,
-            out.stride(0), scratch.data_ptr(), rows.data_ptr(),
+        err = lib.kt_skm_dense(
+            packed.data_ptr(), packed.shape[0], sep.data_ptr(), sep.shape[0], int(dense), n, k,
+            out.data_ptr(), cap, out.stride(0), scratch.data_ptr(), rows.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_skm_dense")
     run_rows_dense.launches += 1
@@ -104,6 +131,15 @@ def launch_dense(codes: torch.Tensor, k: int, n: int, out: torch.Tensor, cap: in
 
 
 run_rows_dense.launches = 0
+
+
+def run_rows_dense_plain(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, cap: int,
+                         dense: bool = False):
+    """Plain PyTorch version of ``run_rows_dense``: the function's
+    definition, ``codes_from_chunk`` then ``run_rows_dense_torch``."""
+    _check_chunk(packed, sep, k, n, cap, dense)
+    return run_rows_dense_torch(codes_from_chunk(packed, sep, k=k, n=n, dense=dense),
+                                k=k, n=n, cap=cap)
 
 
 def _sliding_min(x: torch.Tensor, w: int) -> torch.Tensor:

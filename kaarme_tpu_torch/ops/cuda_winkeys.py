@@ -19,8 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from kaarme_tpu.utils.codec import words_per_kmer
-
+from ..utils.codec import words_per_kmer
 from . import _build
 from .sortcount import M32, i32
 

@@ -1,8 +1,9 @@
 """Super-k-mer (minimizer-run) pipeline in PyTorch — the counterpart of
 ``kaarme_tpu/ops/skm.py``, the subset the main path runs.
 
-Per superstep: unpack the transfer chunk, segment it into run rows —
-dense (K1) or slotted, S rows per 512-window tile (K5; ``cuda_skm``) —
+Per superstep: segment the transfer chunk into run rows — dense (K1,
+which reads the chunk itself) or slotted, S rows per 512-window tile
+(the chunk unpacked to codes, then K5; ``cuda_skm``) —
 sort the run-store prefix ++ the new rows by their Wc + 1 words
 (``sortcount.lexsort``) and merge equal rows with the embedded-count
 segment-sum (K2, ``cuda_compact``, ebits = 26).  At finalize, every
@@ -19,8 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from kaarme_tpu.utils.codec import words_per_kmer
-
+from ..utils.codec import words_per_kmer
 from . import cuda_skm
 from .cuda_skm import EBITS, LMAX, M, content_words
 from .sortcount import (M32, _bloom_miss_mask, _is_sentinel_i32, _kernel_finish,
@@ -44,11 +44,9 @@ def supported(k: int) -> bool:
 def skm_segpack_dense_step(packed, sep, *, k: int, n: int, cap: int,
                            dense: bool = False, kernels: str = "cuda"):
     """Transfer chunk -> dense run rows (Wc+1 columns of ``cap`` rows)
-    and int32 [rows_exact, rows_used]."""
-    codes = codes_from_chunk(packed, sep, k=k, n=n, dense=dense)
-    if kernels == "plain":
-        return cuda_skm.run_rows_dense_torch(codes, k=k, n=n, cap=cap)
-    return cuda_skm.run_rows_dense(codes, k=k, n=n, cap=cap)
+    and int32 [rows_exact, rows_used]: K1 reads the chunk itself."""
+    fn = cuda_skm.run_rows_dense_plain if kernels == "plain" else cuda_skm.run_rows_dense
+    return fn(packed, sep, k=k, n=n, cap=cap, dense=dense)
 
 
 def skm_segpack_step(packed, sep, *, k: int, n: int, S: int, dense: bool = False,

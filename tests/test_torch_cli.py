@@ -164,24 +164,57 @@ def test_cuda_without_card_is_an_error(tmp_path, capsys):
     assert not (tmp_path / "x.out").exists()
 
 
-def test_port_run_imports_no_jax(tmp_path):
-    p = _fasta(tmp_path)
-    code = ("import sys; from kaarme_tpu_torch import cli; "
-            f"rc = cli.main([{str(p)!r}, '31', '-s', '4096', '-q', '--device', 'cpu', "
-            f"'-o', {str(tmp_path / 'o.txt')!r}]); "
-            "assert rc == 0, rc; assert 'jax' not in sys.modules, 'jax imported'; "
-            "print('NOJAX')")
+# Installed first in each subprocess: a meta-path finder that refuses jax
+# and the JAX package, so that any import of them fails loudly.
+_BLOCK = """
+import importlib.abc, sys
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax.") or name == "kaarme_tpu" \\
+                or name.startswith("kaarme_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+sys.meta_path.insert(0, _Block())
+"""
+
+
+@pytest.mark.parametrize("extra,stdin", [
+    (["31", "-s", "4096"], ""),
+    (["13", "-s", "4096", "--pipeline", "classic"], ""),
+    (["31", "-b", "-u", "4000"], ""),
+    (["31", "-s", "4096", "--histo", "h.txt", "--query"], "ACGTACGTACGTACGTACGTACGTACGTACG\n"),
+], ids=["skm", "classic_k13", "bloom", "histo_query"])
+def test_port_run_imports_no_jax(tmp_path, extra, stdin):
+    """Every module of the port imports, and the CLI runs (skm, classic
+    k=13, -b -u, --histo with --query on stdin), with jax and kaarme_tpu
+    refused by the import system; neither ends up in sys.modules."""
+    p = _fasta(tmp_path, n=1200)
+    argv = [str(p)] + extra + ["-q", "--device", "cpu", "-o", str(tmp_path / "o.txt")]
+    code = _BLOCK + (
+        "import importlib, pkgutil, kaarme_tpu_torch\n"
+        "for m in pkgutil.walk_packages(kaarme_tpu_torch.__path__, 'kaarme_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from kaarme_tpu_torch import cli\n"
+        f"rc = cli.main({argv!r})\n"
+        "assert rc == 0, rc\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'kaarme_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('NOJAX')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=str(tmp_path), env=env, timeout=300)
+                         cwd=str(tmp_path), env=env, input=stdin, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "NOJAX" in res.stdout
     assert (tmp_path / "o.txt").stat().st_size > 0
 
 
 def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    """No source of the port, and not chip_smoke.py, imports jax or the
+    JAX package (kaarme_tpu; kaarme_tpu_torch is the port itself)."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|kaarme_tpu)(\.|\s|$)", re.M)
     srcs = list((ROOT / "kaarme_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(srcs) > 10
     bad = [str(f) for f in srcs if pat.search(f.read_text())]
     assert not bad
+    assert pat.search("from kaarme_tpu.io import reader") and pat.search("import jax.numpy")
+    assert not pat.search("from kaarme_tpu_torch.io import reader")

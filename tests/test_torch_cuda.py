@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from kaarme_tpu_torch import cli
+from kaarme_tpu_torch.io import fastio
 from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, cuda_skm, cuda_winkeys, sortcount
 
 
@@ -32,14 +33,43 @@ def _codes(n, k, seed):
     return c
 
 
+def _chunk(n, k, seed, no_sep=False):
+    """The transfer chunk K1 reads: packed 2-bit words (random bases under
+    the invalid positions too), the separator list (with entries outside
+    [0, L) that are dropped, one negative as int32) and the dense bitmap.
+    A poly-A stretch without separators keeps one minimizer over several
+    tiles, so the LMAX cap is anchored at a TRUE start tiles back."""
+    rng = np.random.default_rng(seed)
+    L = n + k - 1
+    bases = rng.integers(0, 4, L).astype(np.uint8)
+    inv = np.zeros(L, bool)
+    if not no_sep:
+        inv[::151] = True
+        inv[1000:1003] = True
+        inv[5000:9000] = False
+    bases[5000:9000] = 0
+    packed, _ = fastio.pack_stream_np(bases)
+    _, mask = fastio.pack_stream_np(inv.astype(np.uint8) * 4)
+    sep = np.concatenate([np.flatnonzero(inv), [L, L + 9, 0xFFFFFFF0]]).astype(np.uint32)
+    return packed, sep, mask
+
+
+def _dev(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
 @pytest.mark.parametrize("k,n", [(16, 5000), (31, 1 << 15), (51, 1 << 20), (51, 777),
-                                 (101, 100_003)])
-def test_k1_kernel_equals_plain(dev, k, n):
-    codes = torch.from_numpy(_codes(n, k, seed=k)).to(dev)
+                                 (101, 100_003), (201, 30_001)])
+def test_k1_kernel_equals_plain(dev, k, n, dense):
+    """From the chunk, in both formats; n = 777 is a tail shorter than a
+    tile."""
+    packed, sep, mask = _chunk(n, k, seed=k)
+    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
     for cap in (n // 4, 1024, 0):
-        got = cuda_skm.run_rows_dense(codes, k=k, n=n, cap=cap)
-        want = cuda_skm.run_rows_dense_torch(codes, k=k, n=n, cap=cap)
+        got = cuda_skm.run_rows_dense(p, s, k=k, n=n, cap=cap, dense=dense)
+        want = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=cap, dense=dense)
         torch.cuda.synchronize()
         assert torch.equal(got[1], want[1])
         for a, b in zip(got[0], want[0]):
@@ -47,18 +77,35 @@ def test_k1_kernel_equals_plain(dev, k, n):
 
 
 @pytest.mark.cuda
-def test_k1_writes_nothing_past_cap(dev):
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+def test_k1_chunk_without_separators(dev, dense):
+    k, n = 51, 70_001
+    packed, sep, mask = _chunk(n, k, seed=2, no_sep=True)
+    sep = sep[:0]
+    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
+    got = cuda_skm.run_rows_dense(p, s, k=k, n=n, cap=n, dense=dense)
+    want = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=n, dense=dense)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and int(want[1][0]) > 0
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+def test_k1_writes_nothing_past_cap(dev, dense):
     k, n = 51, 1 << 18
-    codes = torch.from_numpy(_codes(n, k, seed=5)).to(dev)
-    _, rows = cuda_skm.run_rows_dense_torch(codes, k=k, n=n, cap=0)
+    packed, sep, mask = _chunk(n, k, seed=5)
+    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
+    _, rows = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=0, dense=dense)
     cap = int(rows[0]) // 2
     out = torch.full((cuda_skm.content_words(k) + 1, cap + 333), 77, dtype=torch.int32,
                      device=dev)
-    cols, r = cuda_skm.launch_dense(codes, k, n, out, cap)
+    cols, r = cuda_skm.launch_dense(p, s, k, n, out, cap, dense=dense)
     torch.cuda.synchronize()
     assert r.tolist() == rows.tolist()
     assert bool((out[:, cap:] == 77).all())
-    want, _ = cuda_skm.run_rows_dense_torch(codes, k=k, n=n, cap=cap)
+    want, _ = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=cap, dense=dense)
     for a, b in zip(cols, want):
         assert torch.equal(a, b)
 

@@ -1,9 +1,13 @@
 """K1 (dense run segmentation) of the PyTorch port, held exactly to the
 JAX package: the plain version (what the CPU runs) against
 ``pallas_skm.run_rows_dense_pallas(interpret=True)`` and the NumPy
-mirror ``skm.run_rows_np``.  Every quantity is an integer, so the
-tolerance is 0.  The CUDA kernel itself is compared with the plain
-version on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+mirror ``skm.run_rows_np`` — from codes, and from the transfer chunk
+(packed 2-bit words plus a separator list or a dense bitmap) that the
+wrapper takes, against the JAX package's ``unpack_codes_sparse`` /
+``unpack_codes`` followed by the Pallas kernel.  Every quantity is an
+integer, so the tolerance is 0.  The CUDA kernel itself is compared with
+the plain version on the card by tests/test_torch_cuda.py and
+chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -11,6 +15,8 @@ import torch
 import jax.numpy as jnp
 
 from kaarme_tpu.ops import pallas_skm, skm
+from kaarme_tpu.ops import sortcount as ref_sc
+from kaarme_tpu_torch.io import fastio
 from kaarme_tpu_torch.ops import cuda_skm
 
 SENT = 0xFFFFFFFF
@@ -25,11 +31,29 @@ def _codes(n, k, seed, sep_every=151):
     return c, (c & 3).astype(np.uint32) | (inv << 2)
 
 
+def _chunk(c_u8, seed):
+    """The transfer chunk of a code stream: packed words with random bases
+    under the invalid positions too (they must not matter), the separator
+    list with entries outside [0, L) that must be dropped (the last one
+    negative as int32), and the dense bitmap."""
+    L = c_u8.shape[0]
+    bases = np.where(c_u8 >= 4, np.random.default_rng(seed).integers(0, 4, L), c_u8)
+    packed, _ = fastio.pack_stream_np(bases.astype(np.uint8))
+    _, mask = fastio.pack_stream_np(c_u8)
+    sep = np.concatenate([np.flatnonzero(c_u8 >= 4), [L, L + 77, 0xFFFFFFF0]]).astype(np.uint32)
+    return packed, sep, mask
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def _rows(cols, rows):
+    return np.stack([c.numpy().view(np.uint32) for c in cols], 1), [int(x) for x in rows]
+
+
 def _port(codes_u32, k, n, cap):
-    cols, rows = cuda_skm.run_rows_dense(
-        torch.from_numpy(codes_u32.view(np.int32)), k=k, n=n, cap=cap)
-    arr = np.stack([c.numpy().view(np.uint32) for c in cols], 1)
-    return arr, [int(x) for x in rows]
+    return _rows(*cuda_skm.run_rows_dense_torch(_t(codes_u32), k=k, n=n, cap=cap))
 
 
 def _mirror_dict(rows):
@@ -58,12 +82,43 @@ def test_plain_k1_matches_pallas_and_mirror(k, n):
     assert _mirror_dict(arr[:exact]) == skm.run_rows_np(c_u8, k, n)
 
 
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+@pytest.mark.parametrize("k,n", [(31, 1 << 15), (51, 1 << 15)])
+def test_chunk_k1_matches_jax_unpack_and_pallas(k, n, dense):
+    """The wrapper on CPU tensors, from the chunk, against the JAX
+    package's unpack of the same chunk and its Pallas kernel; L = n + k - 1
+    is no multiple of 16 or 32."""
+    c_u8, _ = _codes(n, k, seed=11)
+    packed, sep, mask = _chunk(c_u8, seed=k)
+    L = n + k - 1
+    if dense:
+        ref_codes = ref_sc.unpack_codes(jnp.asarray(packed), jnp.asarray(mask), L)
+    else:
+        ref_codes = ref_sc.unpack_codes_sparse(jnp.asarray(packed), jnp.asarray(sep), L)
+    cap = n // 4
+    cols, ndv = pallas_skm.run_rows_dense_pallas(ref_codes, k=k, n=n, cap=cap, interpret=True)
+    ref = np.stack([np.asarray(c) for c in cols], 1)
+    ref_live = ref[ref[:, -1] != SENT]
+    arr, (exact, used) = _rows(*cuda_skm.run_rows_dense(
+        _t(packed), _t(mask if dense else sep), k=k, n=n, cap=cap, dense=dense))
+    assert exact == used == int(ndv[0]) == ref_live.shape[0]
+    np.testing.assert_array_equal(arr[:exact], ref_live)
+    assert (arr[exact:] == SENT).all()
+
+
 @pytest.mark.parametrize("k,n", [(16, 3000), (51, 777), (101, 4096)])
 def test_plain_k1_any_n_matches_mirror(k, n):
-    """The port takes any n (no block alignment) and any k >= 16."""
+    """The port takes any n (no block alignment) and any k >= 16, from
+    codes and from the chunk in both formats."""
     c_u8, c32 = _codes(n, k, seed=n, sep_every=97)
     arr, (exact, _) = _port(c32, k, n, 1 << 13)
     assert _mirror_dict(arr[:exact]) == skm.run_rows_np(c_u8, k, n)
+    packed, sep, mask = _chunk(c_u8, seed=n)
+    for dense, s in ((False, sep), (True, mask)):
+        got, rows = _rows(*cuda_skm.run_rows_dense(_t(packed), _t(s), k=k, n=n, cap=1 << 13,
+                                                   dense=dense))
+        assert rows == [exact, exact]
+        np.testing.assert_array_equal(got, arr)
 
 
 def test_plain_k1_overflow_writes_nothing_past_cap():
@@ -77,3 +132,14 @@ def test_plain_k1_overflow_writes_nothing_past_cap():
                                               interpret=True)
     assert int(ndv[1]) > 1024                # the reference reports it too
 
+
+def test_k1_wrapper_refuses_what_it_does_not_take():
+    packed, sep = _t(np.zeros(4, np.uint32)), _t(np.zeros(3, np.uint32))
+    with pytest.raises(ValueError, match="k >= 16"):
+        cuda_skm.run_rows_dense(packed, sep, k=15, n=10, cap=8)
+    with pytest.raises(ValueError, match="bases"):
+        cuda_skm.run_rows_dense(packed, sep, k=31, n=40, cap=8)
+    with pytest.raises(ValueError, match="bitmap"):
+        cuda_skm.run_rows_dense(packed, sep[:1], k=31, n=20, cap=8, dense=True)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_skm.run_rows_dense(packed.long(), sep, k=31, n=20, cap=8)

@@ -141,7 +141,7 @@ def test_plain_k5_equals_dense_rows():
     cols, maxruns = _port(codes, k, n, 512)
     slotted = np.stack(cols, 1)
     slotted = slotted[slotted[:, -1] != 0xFFFFFFFF]
-    dense, rows = cuda_skm.run_rows_dense(_codes32(codes), k=k, n=n, cap=n)
+    dense, rows = cuda_skm.run_rows_dense_torch(_codes32(codes), k=k, n=n, cap=n)
     dense = np.stack([c.numpy().view(np.uint32) for c in dense], 1)[: int(rows[0])]
     np.testing.assert_array_equal(slotted, dense)
 

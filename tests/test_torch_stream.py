@@ -7,7 +7,6 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from kaarme_tpu.io import fastio as ref_fastio
 from kaarme_tpu.ops import sortcount as ref_sc
 from kaarme_tpu_torch.io import fastio
 from kaarme_tpu_torch.ops import sortcount
@@ -30,7 +29,7 @@ def test_pack_stream_matches_reference(n):
         assert got[0].dtype == np.uint32 and got[1].dtype == np.uint32
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
-    if ref_fastio.get_lib() is not None:
+    if fastio.get_lib() is not None:
         np.testing.assert_array_equal(fastio.pack_stream(s, threads=3)[0], want[0])
 
 
