@@ -15,7 +15,10 @@ Run from the repository root.  It builds the port's CUDA kernels from
    plain version's and its bound;
 2. K2 (segment-sum + compaction) in embedded mode at the run-store
    merge's shape (6 columns) and in full_sum mode at the finalize's
-   shape (4 key columns + count): kernel == plain;
+   shape (4 key columns + count): kernel == plain; and bit for bit on
+   its edge cases: one key over more than 64 of its tiles in both modes
+   (its full_sum mass crossing 2^20), W = 1 and W = 15, N = 0, and
+   out_len < nd with a guard region past out_len left untouched;
 3. K3 (canonical window keys) at the classic path's shape (k=51 and
    k=13, 2^26 windows) and at k=201 on a small and an odd tail length:
    kernel == plain, bit for bit;
@@ -24,10 +27,12 @@ Run from the repository root.  It builds the port's CUDA kernels from
    merged with the next 2^26 sorted window keys, embedded (k=51) and
    separate-count (k=13), plus an overflow case with a guard region;
    and K2's full_sum mode at the classic k=13 superstep's shape;
-5. K5 (slotted run segmentation) at the slotted skm path's shape (k=51,
-   2^26 windows, S=96) and with S=16, where tiles overflow and the same
-   rows must be dropped: kernel == plain, rows and max_tile_runs; and
-   on a tail of no whole number of 512-window tiles;
+5. K5 (slotted run segmentation) from K1's transfer chunk (separator
+   list and bitmap) at the slotted skm path's shape (k=51, 2^26
+   windows, S=96) and with S=16, where tiles overflow and the same rows
+   must be dropped: kernel == plain (the unpack, then the plain
+   segmentation), rows and max_tile_runs; and on a tail of no whole
+   number of 512-window tiles;
 6. the CLI end to end on small inputs (skm: k=31 and k=51, -m 0 and
    -m 2; classic: k=13, and k=31 with ``--compactor merge``) against a
    string-based golden count, and the slotted skm counter at S=8
@@ -223,15 +228,15 @@ def phase_k1(dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, **b), got
 
 
-def phase_k2(dev, k1_out):
+def k2_merge_input(cols, r: int):
+    """K2's merge shape from K1's first ``r`` rows of a superstep: the
+    distinct store after it (the prefix) merged with the same rows
+    again, as superstep 2 does, sorted.  Returns (the (w, N) rows, the
+    prefix's distinct count)."""
     import torch
     from kaarme_tpu_torch.ops import cuda_compact, skm, sortcount
 
-    (cols, rows) = k1_out
-    r = int(rows[0])
     w = skm.store_words(K)
-    # merge shape: the distinct store after one superstep (the prefix)
-    # merged with the same superstep's rows again, as superstep 2 does
     rows_cols = tuple(c[:r] for c in cols)
     s1 = sortcount.lexsort(list(rows_cols), num_keys=w)
     ok, oc, nd1 = cuda_compact.segsum_compact_torch(s1, None, ebits=skm.EBITS)
@@ -239,7 +244,39 @@ def phase_k2(dev, k1_out):
     prefix = [c[:n1] for c in ok] + [oc[:n1]]
     merge = [torch.cat([prefix[i], rows_cols[i]]) for i in range(w - 1)]
     merge.append(torch.cat([prefix[w - 1] | prefix[-1], rows_cols[w - 1]]))
-    s = sortcount.lexsort(merge, num_keys=w)
+    return sortcount.lexsort(merge, num_keys=w), n1
+
+
+def k2_finalize_input(store, n1: int):
+    """K2's finalize shape: the merged store's n1 distinct runs (count 2
+    each now) expanded to k-mers and sorted.  Returns (keys, cnt)."""
+    from kaarme_tpu_torch.ops import skm, sortcount
+
+    runs = [c[:n1] for c in store[0]] + [store[1][:n1]]
+    ex = skm.expand_chunk(tuple(runs), K)
+    fs = sortcount.lexsort(list(ex[:-1]) + [ex[-1]], num_keys=len(ex) - 1)
+    return fs[:-1], fs[-1].contiguous()
+
+
+def k2_classic_input(pk, pc, nxt0):
+    """K2's classic k=13 (separate-count) superstep shape: the store
+    prefix (keys pk, counts pc) and the next batch's window keys nxt0
+    with unit counts, sorted.  Returns (keys (1, N), cnt)."""
+    import torch
+    from kaarme_tpu_torch.ops import sortcount
+
+    cnt = torch.cat([pc, torch.ones(nxt0.shape[0], dtype=torch.int32, device=pc.device)])
+    s = sortcount.lexsort([torch.cat([pk[0], nxt0]), cnt], num_keys=1)
+    return s[:1], s[1].contiguous()
+
+
+def phase_k2(dev, k1_out):
+    import torch
+    from kaarme_tpu_torch.ops import cuda_compact, skm
+
+    (cols, rows) = k1_out
+    w = skm.store_words(K)
+    s, n1 = k2_merge_input(cols, int(rows[0]))
     got = cuda_compact.segsum_compact(s, None, ebits=skm.EBITS)
     want = cuda_compact.segsum_compact_torch(s, None, ebits=skm.EBITS)
     torch.cuda.synchronize()
@@ -256,11 +293,7 @@ def phase_k2(dev, k1_out):
           f"nd={n1}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
 
-    # finalize shape: expand the distinct runs (count 2 each now) to k-mers
-    runs = [c[:n1] for c in got[0]] + [got[1][:n1]]
-    ex = skm.expand_chunk(tuple(runs), K)
-    fs = sortcount.lexsort(list(ex[:-1]) + [ex[-1]], num_keys=len(ex) - 1)
-    keys, cnt = fs[:-1], fs[-1].contiguous()
+    keys, cnt = k2_finalize_input(got, n1)
     fgot = cuda_compact.segsum_compact(keys, cnt)
     fwant = cuda_compact.segsum_compact_torch(keys, cnt)
     torch.cuda.synchronize()
@@ -273,8 +306,85 @@ def phase_k2(dev, k1_out):
     print(f"K2 segsum_compact full_sum: {keys.shape[0]}+1 cols x {keys.shape[1]} rows, "
           f"nd={int(fwant[2][0])}; kernel {fms:.3f} ms, plain {fplain:.3f} ms, bound "
           f"{fb['bound_ms']:.4f} ms ({fb['bound_by']})")
-    return dict(max_abs_err=max(err, ferr), ms=ms, plain_ms=plain_ms,
+    err = max(err, ferr, k2_cases(dev))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 full_sum_ms=fms, full_sum_plain_ms=fplain, full_sum_bound_ms=fb["bound_ms"], **b)
+
+
+def k2_rows(dev, g, W: int, N: int, embedded: bool, long_seg: bool):
+    """Sorted K2 input: W key columns over 40 values (every 9th row a
+    sentinel), or with ``long_seg`` one key over rows 100 .. N-300 and
+    sentinels in the last 50 rows; embedded: counts in [1, 2^21) in the
+    last word's low 26 bits; full_sum: a count column, near 2^20 on the
+    long key.  Returns (keys, cnt or None)."""
+    import torch
+    from kaarme_tpu_torch.ops import sortcount
+
+    keys = torch.randint(0, 40, (W, N), generator=g, device=dev, dtype=torch.int64)
+    keys[0] |= 0x80000000
+    sent = torch.zeros(N, dtype=torch.bool, device=dev)
+    if long_seg:
+        keys[:, 100:N - 300] = keys[:, 100:101]
+        sent[N - 50:] = True
+    else:
+        sent[::9] = True
+    if embedded:
+        keys[-1] = ((keys[-1] << 26) & 0xFFFFFFFF) | torch.randint(
+            1, 1 << 21, (N,), generator=g, device=dev)
+    keys[:, sent] = 0xFFFFFFFF
+    cols = [k.to(torch.int32) for k in keys]   # uint32 patterns as int32 (wraps)
+    if not embedded:
+        lo = (1 << 20) - 3 if long_seg else 0
+        cols.append(torch.randint(lo, 1 << 20, (N,), generator=g, device=dev,
+                                  dtype=torch.int32).masked_fill(sent, 0))
+    s = sortcount.lexsort(cols, num_keys=W)
+    return (s, None) if embedded else (s[:W].contiguous(), s[W].contiguous())
+
+
+def k2_cases(dev) -> int:
+    """K2's edge cases against the plain version, bit for bit: one key
+    over more than 64 tiles of 2048 rows in both modes (its carry comes
+    from the look-back, over more than one round of 32 tiles; the
+    full_sum mass crosses 2^20 again and again, the embedded total
+    crosses it once), W = 1 and W = 15, N = 0, and out_len < nd into a
+    buffer whose guard region past out_len must stay untouched."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_compact
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n_long = 66 * 2048 + 777
+    done = []
+    for W, N, emb, long_seg in ((2, n_long, True, True), (1, n_long, False, True),
+                                (1, 300_001, True, False), (15, 200_003, True, False),
+                                (15, 70_001, False, False), (3, 0, True, False),
+                                (1, 0, False, False)):
+        keys, cnt = k2_rows(dev, g, W, N, emb, long_seg)
+        eb = 26 if emb else 0
+        want = cuda_compact.segsum_compact_torch(keys, cnt, ebits=eb)
+        got = cuda_compact.segsum_compact(keys, cnt, ebits=eb)
+        torch.cuda.synchronize()
+        nd = want[2].tolist()
+        e = max_abs_err(got, want)
+        if e or got[2].tolist() != nd:
+            raise AssertionError(f"K2 W={W} N={N} embedded={emb}: kernel != plain (max abs err "
+                                 f"{e}, nd {got[2].tolist()} vs {nd})")
+        if long_seg:
+            top = int(want[1].max())
+            if not (1 << 20) < top < (1 << 21) or nd[0] < 3:
+                raise AssertionError(f"K2 long key: total {top}, nd {nd}")
+            small, guard = nd[0] // 2, 4096
+            buf = torch.full((W + 1, small + guard), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+            ok, oc, ond = cuda_compact.launch_compact(keys, cnt, buf, small, ebits=eb)
+            torch.cuda.synchronize()
+            if ond.tolist() != nd or not bool((buf[:, small:] == 0x5A5A5A5A).all()):
+                raise AssertionError(f"K2 out_len {small} < nd {nd}: wrote past out_len")
+            if max_abs_err([ok, oc], [want[0][:, :small], want[1][:small]]):
+                raise AssertionError("K2 overflow prefix != plain")
+        done.append(f"W={W} N={N} {'embedded' if emb else 'full_sum'}"
+                    + (f" (one key over {(N - 400) // 2048} tiles, out_len {nd[0] // 2} < nd "
+                       f"{nd[0]}: guard intact)" if long_seg else f" nd={nd[0]}"))
+    print(f"K2 edge cases == plain: {'; '.join(done)}")
+    return 0
 
 
 def phase_k3(dev):
@@ -384,9 +494,7 @@ def phase_k4(dev, batches):
             del buf, ok, oc
         else:
             # K2 full_sum at the classic separate-count superstep's shape
-            cnt = torch.cat([pc, torch.ones(N_WINDOWS, dtype=torch.int32, device=dev)])
-            s = sortcount.lexsort([torch.cat([pk[0], nxt[0]]), cnt], num_keys=1)
-            keys, c = s[:1], s[1].contiguous()
+            keys, c = k2_classic_input(pk, pc, nxt[0])
             fgot = cuda_compact.segsum_compact(keys, c, out_len=cap)
             fwant = cuda_compact.segsum_compact_torch(keys, c, out_len=cap)
             torch.cuda.synchronize()
@@ -400,7 +508,7 @@ def phase_k4(dev, batches):
             print(f"K2 segsum_compact full_sum (classic k=13 superstep): 1+1 cols x "
                   f"{keys.shape[1]} rows, nd={fwant[2].tolist()[0]}; kernel {fms:.3f} ms, "
                   f"plain {fplain:.3f} ms, bound {fb['bound_ms']:.4f} ms ({fb['bound_by']})")
-            del s, keys, c, fgot, fwant
+            del keys, c, fgot, fwant
         del a, b, got, want, pk, pc, nxt
         torch.cuda.empty_cache()
     k4 = dict(max_abs_err=err, ms=out[51][0], plain_ms=out[51][1],
@@ -411,36 +519,48 @@ def phase_k4(dev, batches):
 
 
 def phase_k5(dev):
-    """K5 against its plain version at the slotted skm path's shape
-    (k=51, 2^26 windows, S=96), with S=16 (tiles overflow: the same rows
-    dropped, the same max_tile_runs > S), and on a tail of no whole
-    number of 512-window tiles."""
+    """K5 from K1's transfer chunk, in both formats, against its plain
+    version (the unpack, then the plain slotted segmentation) at the
+    slotted skm path's shape (k=51, 2^26 windows, S=96), with S=16
+    (tiles overflow: the same rows dropped, the same max_tile_runs > S),
+    and on a tail of no whole number of 512-window tiles; its time beside
+    the plain version's and its bound."""
     import torch
     from kaarme_tpu_torch.ops import cuda_skm
 
-    codes = read_stream(dev, 4_600_000, N_WINDOWS + K - 1, n_every=100_003)
-    err, ms, plain_ms, b = 0, None, None, None
+    packed, sep, mask = chunk_of(read_stream(dev, 4_600_000, N_WINDOWS + K - 1, n_every=100_003))
+    err, ms, dense_ms, plain_ms, b = 0, None, None, None, None
     for n, S in ((N_WINDOWS, 96), (N_WINDOWS, 16), (N_WINDOWS // 3 + 77, 96)):
-        got = cuda_skm.run_rows_slotted(codes, k=K, n=n, S=S)
-        want = cuda_skm.run_rows_slotted_torch(codes, k=K, n=n, S=S)
-        torch.cuda.synchronize()
-        mr = int(want[1])
-        e = max_abs_err(got[0], want[0])
-        if e or int(got[1]) != mr or (S == 16 and mr <= S):
-            raise AssertionError(f"K5 n={n} S={S}: kernel != plain (max abs err {e}, "
-                                 f"max_tile_runs {int(got[1])} vs {mr})")
-        err = max(err, e)
+        for dense, s in ((False, sep), (True, mask)):
+            got = cuda_skm.run_rows_slotted(packed, s, k=K, n=n, S=S, dense=dense)
+            want = cuda_skm.run_rows_slotted_plain(packed, s, k=K, n=n, S=S, dense=dense)
+            torch.cuda.synchronize()
+            mr = int(want[1])
+            e = max_abs_err(got[0], want[0])
+            if e or int(got[1]) != mr or (S == 16 and mr <= S):
+                raise AssertionError(f"K5 n={n} S={S} dense={dense}: kernel != plain (max abs "
+                                     f"err {e}, max_tile_runs {int(got[1])} vs {mr})")
+            err = max(err, e)
+            del want
         rows = cuda_skm.slot_rows(n, S)
         what = f"{rows} slot rows, max_tile_runs {mr}" + (" > S: rows dropped" if mr > S else "")
         if n == N_WINDOWS and S == 96:
-            ms = cuda_ms(lambda: cuda_skm.run_rows_slotted(codes, k=K, n=n, S=S))
-            plain_ms = cuda_ms(lambda: cuda_skm.run_rows_slotted_torch(codes, k=K, n=n, S=S))
-            b = bound([codes[:n + K - 1]], list(got[0]) + [got[1]], 20.0 * n)
-            what += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                     f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        print(f"K5 skm_slotted k={K} n={n} S={S}: {what}; kernel == plain")
-        del got, want
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+            run = lambda s, dense: cuda_skm.run_rows_slotted(packed, s, k=K, n=n, S=S,
+                                                             dense=dense)
+            ms = cuda_ms(lambda: run(sep, False))
+            dense_ms = cuda_ms(lambda: run(mask, True))
+            plain_ms = cuda_ms(lambda: cuda_skm.run_rows_slotted_plain(packed, sep, k=K, n=n,
+                                                                       S=S))
+            # the sparse chunk in, every slot row and max_tile_runs out;
+            # ~20 operations per window, as K1
+            b = bound([packed, sep], list(got[0]) + [got[1]], 20.0 * n)
+            what += (f"; kernel {ms:.3f} ms sparse, {dense_ms:.3f} ms dense; codes_from_chunk "
+                     f"+ plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+                     f"{b['bound_bytes']} bytes, {b['bound_ops']:.0f} operations)")
+        print(f"K5 skm_slotted k={K} n={n} S={S} from the chunk: {what}; kernel == plain in "
+              "both formats")
+        del got
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, **b)
 
 
 def write_reads_fasta(path, genome_len: int, coverage: int, read_len: int = 150,

@@ -1,12 +1,26 @@
-// Block-level scan helpers shared by the kernels of this package.
+// Scan helpers shared by the kernels of this package: block scans, the
+// clamped segmented sum, and chained scans across tiles by decoupled
+// look-back.
 //
-// The TPU kernels kept their carries in SMEM across a sequential grid; on
-// Hopper the blocks run in no order, so every cross-tile carry becomes a
-// scan over tiles.  K2, K4 and K5 are multi-pass: a per-tile pass
-// produces one aggregate per tile, ONE block scans the tile aggregates in
-// place (scan_tiles_kernel), and a second per-tile pass consumes the
-// exclusive prefix.  K1 chains its scans in one pass with decoupled
-// look-back (skm_dense.cu).
+// Replaces nothing on its own: the TPU kernels it serves
+// (kaarme_tpu/ops/pallas_skm.py::_skm_dense_kernel and _skm_kernel,
+// kaarme_tpu/ops/pallas_compact.py::_compact_kernel) kept their
+// cross-block carries in SMEM across a sequential grid.  On Hopper the
+// blocks run in no order, so each carry becomes a chained scan over
+// tiles in ONE kernel (Merrill and Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back"): a tile takes its index from an atomic
+// ticket, so every tile it waits on is already running; it publishes its
+// own aggregate in a status word as soon as it has it, and one warp
+// looks back over its predecessors' words, 32 at a time, until it meets
+// one that holds an inclusive prefix.  What bounds it on the H100 is the
+// latency of that chain (a few hundred cycles per hop), not bytes: a
+// tile that publishes early lets its successors stop early.  Each status
+// word holds a flag (2 bits) and the value (62 bits), written by one
+// 64-bit store, so no reader sees half of it.  The look-back runs in the
+// kernel that includes it, so its registers are the kernel's (noted at
+// the top of each kernel source); the one kernel of this header, the
+// sentinel fill (fill_tail_kernel, a grid-stride store bound by bytes),
+// uses 28 registers per thread (ptxas -v, sm_90a).
 #pragma once
 
 #include <cstdint>
@@ -57,6 +71,7 @@ __device__ __forceinline__ uint32_t clamp_count(uint32_t c) {
 
 // Segmented sum: (a, b) -> b restarts the value when it holds a start.
 // CLAMPED selects the clamped add (full_sum mode) over the plain add.
+// Associative, not commutative; {0, 0} is its identity on both sides.
 template <bool CLAMPED>
 struct SegOp {
     __device__ __forceinline__ Seg operator()(Seg a, Seg b) const {
@@ -65,6 +80,26 @@ struct SegOp {
         uint32_t s = a.v + b.v;
         r.v = b.f ? b.v : (CLAMPED ? clamp_count(s) : s);
         return r;
+    }
+};
+
+// A Seg in a status word's value: f in bit 32, v in bits 0-31.
+__device__ __forceinline__ long long seg_pack(Seg s) {
+    return ((long long)(s.f != 0) << 32) | s.v;
+}
+
+__device__ __forceinline__ Seg seg_unpack(long long x) {
+    Seg s;
+    s.f = (uint32_t)(x >> 32);
+    s.v = (uint32_t)x;
+    return s;
+}
+
+// SegOp on packed values, for the look-back.
+template <bool CLAMPED>
+struct PackedSegOp {
+    __device__ __forceinline__ long long operator()(long long a, long long b) const {
+        return seg_pack(SegOp<CLAMPED>()(seg_unpack(a), seg_unpack(b)));
     }
 };
 
@@ -102,32 +137,75 @@ __device__ T block_excl_scan(T x, T id, Op op, T& total) {
     return ex;
 }
 
-// In-place exclusive scan of nt tile aggregates by ONE block of
-// SCAN_THREADS threads; the grand total goes to *total_out when it is
-// not null.
-constexpr int SCAN_THREADS = 256;
+// status word: flag in bits 62-63, value in bits 0-61
+constexpr unsigned long long ST_AGG = 1ull << 62;     // the tile's own value
+constexpr unsigned long long ST_INC = 2ull << 62;     // inclusive of every tile before
+constexpr unsigned long long ST_VAL = (1ull << 62) - 1;
 
-template <typename T, typename Op>
-__global__ void __launch_bounds__(SCAN_THREADS) scan_tiles_kernel(T* data, long long nt, T id, Op op, T* total_out) {
-    constexpr int IT = 16;
-    T carry = id;
-    for (long long base = 0; base < nt; base += (long long)blockDim.x * IT) {
-        const long long s = base + (long long)threadIdx.x * IT;
-        T vals[IT];
-        T loc = id;
-        for (int j = 0; j < IT; ++j) {
-            vals[j] = (s + j < nt) ? data[s + j] : id;
-            loc = op(loc, vals[j]);
+__device__ __forceinline__ unsigned long long ld_status(const unsigned long long* p) {
+    return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void st_status(unsigned long long* p, unsigned long long v) {
+    *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// Decoupled look-back by one warp: op over the values of tiles 0 ..
+// tile-1, read from their status words (value + bias encoded).  Lane j
+// reads tile (tile - 1 - j) of each round of 32, waits until it is
+// published, and the round ends at the nearest inclusive one.  ORDERED
+// combines in tile order (earlier tiles sit on higher lanes, and each
+// round covers tiles before the rounds already done), as an operator
+// that does not commute needs; otherwise a butterfly over the lanes
+// does.  ``id`` must be an identity of op on both sides.  Every lane
+// returns the result.
+template <bool ORDERED, typename Op>
+__device__ long long warp_lookback(const unsigned long long* st, long long tile, Op op,
+                                   long long id, long long bias) {
+    const int lane = threadIdx.x & 31;
+    long long acc = id;
+    for (long long j = tile - 1 - lane;; j -= 32) {
+        unsigned long long s = ST_INC | (unsigned long long)(id + bias);
+        if (j >= 0) {
+            do s = ld_status(st + j);
+            while ((s >> 62) == 0);
         }
-        T tot;
-        T run = op(carry, block_excl_scan(loc, id, op, tot));
-        for (int j = 0; j < IT; ++j) {
-            if (s + j < nt) data[s + j] = run;
-            run = op(run, vals[j]);
+        const unsigned inc = __ballot_sync(FULL_MASK, (s >> 62) == 2);
+        long long v = (long long)(s & ST_VAL) - bias;
+        if (inc && lane > __ffs(inc) - 1) v = id;
+        if (ORDERED) {
+            // lane l ends up with op over lanes 31 .. l, in that order
+            for (int d = 1; d < 32; d <<= 1) {
+                const long long y = __shfl_down_sync(FULL_MASK, v, d);
+                if (lane + d < 32) v = op(y, v);
+            }
+            acc = op(__shfl_sync(FULL_MASK, v, 0), acc);
+        } else {
+            for (int d = 16; d; d >>= 1) v = op(v, __shfl_xor_sync(FULL_MASK, v, d));
+            acc = op(acc, v);
         }
-        carry = op(carry, tot);
+        if (inc) return acc;
     }
-    if (threadIdx.x == 0 && total_out) *total_out = carry;
+}
+
+// A tile's part of a chained scan: publish its own value at once (tile 0:
+// its inclusive value), ...
+__device__ __forceinline__ void publish(unsigned long long* st, long long tile, long long agg,
+                                        long long bias) {
+    st_status(st + tile, (tile == 0 ? ST_INC : ST_AGG) | (unsigned long long)(agg + bias));
+}
+
+// ... then (one warp, after publish) look back for the exclusive prefix
+// and publish the inclusive value.  Every lane returns the exclusive
+// prefix.
+template <bool ORDERED = false, typename Op>
+__device__ long long resolve(unsigned long long* st, long long tile, long long agg, Op op,
+                             long long id, long long bias) {
+    if (tile == 0) return id;
+    const long long pre = warp_lookback<ORDERED>(st, tile, op, id, bias);
+    if ((threadIdx.x & 31) == 0)
+        st_status(st + tile, ST_INC | (unsigned long long)(op(pre, agg) + bias));
+    return pre;
 }
 
 // Rows [*used, out_len) of ncols u32 columns (column stride ld) become

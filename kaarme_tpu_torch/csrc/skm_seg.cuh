@@ -1,28 +1,49 @@
-// Super-k-mer run segmentation of K5 (skm_slotted.cu) from int32 codes:
-// the counterpart of the front half that the TPU kernels share,
-// kaarme_tpu/ops/pallas_skm.py::_seg_rows_block.  (K1, skm_dense.cu,
-// segments from the transfer chunk in one pass of its own.)
+// Super-k-mer run segmentation from the transfer chunk, in one pass: the
+// front half that K1 (skm_dense.cu) and K5 (skm_slotted.cu) share.
 //
-// Per window position of an n-window stream: the 16-base big-endian
-// m-word, the window's validity (no invalid base in [i, i+k)), its
-// minimizer (min of the k-15 m-words), the run starts (minimizer or
-// validity change, or an LMAX = 16 cap anchored at the last TRUE start)
-// and, at a start, the run length ell <= 16 and the Wc span-masked
-// content words plus the meta word (ell-1) << 26 | 1.
+// Replaces the front half that the TPU kernels share,
+// kaarme_tpu/ops/pallas_skm.py::_seg_rows_block (in
+// run_rows_dense_pallas and run_rows_slotted_pallas), together with the
+// unpack in front of them (ops/sortcount.py::codes_from_chunk).  Input:
+// the chunk the host ships, 2-bit bases (base i at bits 2*(i%16) of word
+// i/16) and the invalid positions as a bitmap (bit i%32 of word i/32; a
+// separator list is scattered into one first, sep_bitmap below).  For
+// every window of the n-window stream: the 16-base big-endian m-words,
+// validity (no invalid base in [x, x+k)), the minimizer (min of the k-15
+// m-words), and the run starts (a minimizer or validity change, an LMAX
+// = 16 cap anchored at the last TRUE start, and every window at or past
+// n).  Positions at or past L = n + k - 1 are invalid whatever the chunk
+// holds.  A base at an invalid position never reaches a row (a live
+// run's span and minimizer windows hold valid positions only), so the
+// bases are read as the chunk holds them.
 //
-// Each block owns a tile of TILE windows and stages the codes of the
-// tile plus its halo (k + 16*Wc + 18 positions) in shared memory as
-// bytes, builds the m-words once per position there, and reads the
-// sliding windows from them.  The TPU grid carried the previous
-// window's minimizer and validity and the last true start from block to
-// block in SMEM; here the previous window is recomputed from the halo
-// and the last true start before a tile is an exclusive max-scan over
-// the tiles' last true starts (block_last_true_start, then
-// scan_tiles_kernel with MaxOp).
+// What bounds it on the H100: bytes.  It reads n/4 bytes of packed bases
+// plus the separators (~19 MB at n = 2^26); the rows the kernels write
+// after it are their own.  The work per window is a few dozen integer
+// operations.  The design keeps every step O(1) per window, whatever k
+// (any k >= 16 whose tile fits in 227 KB of shared memory: k <= 16,721):
+// - m-word at position i: one funnel shift of the packed pair
+//   (i/16, i/16 + 1) and a 2-bit-field reversal (__brev + a bit swap);
+// - validity: prefix popcounts of the tile's bitmap words, so a window's
+//   invalid count is a difference of two ranks;
+// - minimizer: the van Herk / Gil-Werman sliding minimum, prefix and
+//   suffix minima in blocks of w = k - 15 (one thread per block and
+//   direction), then min(S[v], P[v + w - 1]) per window;
+// - run length: the distance to the next start in a bitmap of starts
+//   (ell_at below).
+// The TPU grid carried the last TRUE start from block to block in SMEM;
+// here it is a chained max-scan across tiles by decoupled look-back
+// (scan.cuh): a tile publishes its local last TRUE start at once and
+// looks back for the one before it.  Each tile also flags the LMAX
+// windows past its end (warp 0), so a run's length never waits for the
+// next tile.  Tile: 2048 windows, 256 threads of 8 windows, 8 blocks per
+// SM: the kernels that include it run at 32 registers per thread
+// (__launch_bounds__(THREADS, MIN_BLOCKS); ptxas -v for sm_90a: K1 with a
+// 24-byte stack frame of spills, K5 with none), sep_bitmap at 14.
 //
-// Every device function here is inline and the one kernel static, so
-// that each kernel source may include the header without a duplicate
-// symbol at link time.
+// Every function here is inline and the one kernel static, so that each
+// kernel source may include the header without a duplicate symbol at
+// link time.
 #pragma once
 
 #include "scan.cuh"
@@ -34,206 +55,327 @@ using namespace kt;
 constexpr int M = 16;
 constexpr int LMAX = 16;
 constexpr int EBITS = 26;
+// Tile shape and occupancy: 2048-window tiles of 256 threads, 8 blocks
+// per SM (32 registers), the fastest of the shapes timed for K1 on the
+// card (PERF.md, section 6).
 constexpr int THREADS = 256;
-constexpr int ITEMS = 4;
-constexpr int TILE = THREADS * ITEMS;      // windows per block
-constexpr int NV = TILE + LMAX + 2;        // windows T0-1 .. T0+TILE+LMAX
+constexpr int ITEMS = 8;
+constexpr int MIN_BLOCKS = 8;
+constexpr int TILE = THREADS * ITEMS;     // windows per tile
+constexpr int NV = TILE + 1 + LMAX;       // windows T0-1 .. T0+TILE+LMAX-1
 
 enum : uint8_t { F_VALID = 1, F_TRUE = 2, F_START = 4 };
 
 struct Geo {
-    int k, Wc, w;       // k, content words, minimizer window (k - 15)
-    int NR, NC;         // staged m-words and codes per block
+    int k, Wc, w;
+    int NR;     // m-words staged (window index v reads raw[v + 16 c] and raw[v .. v+w-1])
+    int NRS;    // m-words the sliding minimum scans: NV + w - 1
+    int NPW;    // packed words staged
+    int NBW;    // bitmap words staged
     long long L, n;
 };
 
-__host__ __device__ inline Geo make_geo(int k, long long L, long long n) {
+__host__ inline Geo make_geo(int k, long long L, long long n) {
     Geo g;
     g.k = k;
     g.Wc = (LMAX + k - 1 + 15) / 16;
     g.w = k - M + 1;
-    int reach = g.w > 16 * g.Wc ? g.w : 16 * g.Wc;
-    g.NR = NV + reach;
-    g.NC = (g.NR + 15 > NV + k) ? g.NR + 15 : NV + k;
+    g.NR = NV + (g.w > 16 * g.Wc ? g.w : 16 * g.Wc);
+    g.NRS = NV + g.w - 1;
+    g.NPW = g.NR / 16 + 3;
+    g.NBW = (NV + k + 62) / 32;
     g.L = L;
     g.n = n;
     return g;
 }
 
+constexpr int NSB = NV / 32 + 2;          // start-bitmap words
+
 __host__ inline size_t smem_bytes(const Geo& g) {
-    // raw[NR] u32 | minv[NV] u32 | codes8[NC] u8 | flags[NV] u8
-    return (size_t)g.NR * 4 + (size_t)NV * 4 + (size_t)g.NC + (size_t)NV;
+    // raw[NR] | P[NRS] | S[NRS] | bm[NBW] | pre[NBW] | sb[NSB] (u32) | flags[NV] (u8);
+    // the packed words (NPW < NRS) live in S until the m-words are built,
+    // the kernels' row list (at most TILE < NRS entries) in P once the
+    // minimizers are read
+    return 4 * ((size_t)g.NR + 2 * (size_t)g.NRS + 2 * (size_t)g.NBW + NSB) + NV;
 }
 
-struct Tile {
-    uint32_t* raw;
-    uint32_t* minv;
-    uint8_t* codes8;
+// Reverse the sixteen 2-bit fields: little-endian transfer packing ->
+// big-endian m-word (sortcount._pairrev32).
+__device__ __forceinline__ uint32_t pairrev(uint32_t x) {
+    x = __brev(x);
+    return ((x & 0x55555555u) << 1) | ((x >> 1) & 0x55555555u);
+}
+
+// van Herk / Gil-Werman: P[i] = min(x[b0 .. i]) and S[i] = min(x[i .. b1])
+// within the block [b0, b1] of w elements that holds i (the last block
+// ends at N-1), so that min(x[v .. v+w-1]) = min(S[v], P[v+w-1]).  One
+// thread runs each block's prefix and another its suffix, about w steps
+// each: ~2 operations per element whatever w is.  All threads must call
+// it; the caller synchronises before reading P and S.
+static __device__ void block_prefix_suffix_min(const uint32_t* __restrict__ x,
+                                               uint32_t* __restrict__ P,
+                                               uint32_t* __restrict__ S, int N, int w) {
+    const int nb = (N + w - 1) / w;
+    for (int t = threadIdx.x; t < 2 * nb; t += THREADS) {
+        const int b0 = (t < nb ? t : t - nb) * w, b1 = min(b0 + w, N) - 1;
+        uint32_t m = 0xffffffffu;
+        if (t < nb) {
+#pragma unroll 4
+            for (int i = b0; i <= b1; ++i) {
+                m = min(m, x[i]);
+                P[i] = m;
+            }
+        } else {
+#pragma unroll 4
+            for (int i = b1; i >= b0; --i) {
+                m = min(m, x[i]);
+                S[i] = m;
+            }
+        }
+    }
+}
+
+struct Smem {
+    uint32_t *raw, *P, *S, *pw, *bm, *pre, *sb, *lst;
     uint8_t* flags;
 };
 
-__device__ inline Tile carve(const Geo& g) {
+__device__ inline Smem carve(const Geo& g) {
     extern __shared__ __align__(16) unsigned char smem[];
-    Tile t;
-    t.raw = reinterpret_cast<uint32_t*>(smem);
-    t.minv = t.raw + g.NR;
-    t.codes8 = reinterpret_cast<uint8_t*>(t.minv + NV);
-    t.flags = t.codes8 + g.NC;
-    return t;
+    Smem s;
+    s.raw = reinterpret_cast<uint32_t*>(smem);
+    s.P = s.raw + g.NR;
+    s.S = s.P + g.NRS;
+    s.pw = s.S;
+    s.lst = s.P;
+    s.bm = s.S + g.NRS;
+    s.pre = s.bm + g.NBW;
+    s.sb = s.pre + g.NBW;
+    s.flags = reinterpret_cast<uint8_t*>(s.sb + NSB);
+    return s;
 }
 
-// Stage the block's codes, m-words, minimizers, validity and TRUE starts
-// for windows T0-1 .. T0+TILE+LMAX (index v = window - (T0 - 1)).
-// Positions outside [0, L) read as code 4: invalid, base bits 0.
-__device__ inline void segment_tile(const uint32_t* __restrict__ codes, const Geo& g,
-                                    long long T0, const Tile& t) {
-    const long long base = T0 - 1;
-    for (int i = threadIdx.x; i < g.NC; i += blockDim.x) {
-        long long pos = base + i;
-        t.codes8[i] = (pos >= 0 && pos < g.L) ? (uint8_t)(codes[pos] & 7u) : (uint8_t)4;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < g.NR; i += blockDim.x) {
-        uint32_t r = 0;
-        for (int j = 0; j < M; ++j) r = (r << 2) | (t.codes8[i + j] & 3u);
-        t.raw[i] = r;
-    }
-    __syncthreads();
-    for (int v = threadIdx.x; v < NV; v += blockDim.x) {
-        bool valid = true;
-        for (int j = 0; j < g.k; ++j) {
-            if (t.codes8[v + j] & 4u) {
-                valid = false;
-                break;
-            }
-        }
-        uint32_t mn = 0xffffffffu;
-        if (valid) {
-            for (int j = 0; j < g.w; ++j) {
-                uint32_t r = t.raw[v + j];
-                mn = r < mn ? r : mn;
-            }
-        }
-        t.minv[v] = mn;
-        t.flags[v] = valid ? F_VALID : 0;
-    }
-    __syncthreads();
-    for (int v = 1 + threadIdx.x; v < NV; v += blockDim.x) {
-        long long x = base + v;
-        bool tb = (x == 0) || t.minv[v] != t.minv[v - 1] ||
-                  ((t.flags[v] ^ t.flags[v - 1]) & F_VALID);
-        if (tb) t.flags[v] |= F_TRUE;
-    }
-    __syncthreads();
+// Validity and minimizer of window v (tile-local): q0 is the bit offset of
+// window 0's first position in the staged bitmap.
+__device__ __forceinline__ uint32_t window_minv(const Geo& g, const Smem& s, int v, int q0,
+                                                bool& valid) {
+    auto rank = [&](int q) {
+        return s.pre[q >> 5] + __popc(s.bm[q >> 5] & ((1u << (q & 31)) - 1u));
+    };
+    valid = rank(q0 + v + g.k) == rank(q0 + v);
+    if (!valid) return 0xffffffffu;
+    return min(s.S[v], s.P[v + g.w - 1]);
 }
 
-// The last TRUE start among the tile's windows below n (-1 if none);
-// every thread gets it.
-__device__ inline long long block_last_true_start(const Geo& g, long long T0,
-                                                  const Tile& t) {
+__device__ __forceinline__ void mark_start(const Smem& s, int v, uint8_t f) {
+    s.flags[v] = f | F_START;
+    atomicOr(s.sb + (v >> 5), 1u << (v & 31));
+}
+
+// The run length at start v: the distance to the next start, at most
+// LMAX (reads the start bitmap; after the barrier that follows
+// segment_chunk_tile).
+__device__ __forceinline__ int ell_at(const Smem& s, int v) {
+    const int q = v + 1;
+    const uint32_t next = __funnelshift_r(s.sb[q >> 5], s.sb[(q >> 5) + 1], q & 31);
+    return next ? min(__ffs(next), LMAX) : LMAX;
+}
+
+// Row word c (c < Wc: span-masked content; c == Wc: the meta word) of
+// the live start v with run length ell.
+__device__ __forceinline__ uint32_t row_word(const Geo& g, const Smem& s, int c, int v, int ell) {
+    if (c < g.Wc) {
+        // keep the top 2*nb bits, nb = bases of the span in word c
+        // (a 64-bit shift: nb == 0 shifts by 32)
+        const int nb = min(max(ell + g.k - 1 - 16 * c, 0), 16);
+        return s.raw[v + 16 * c] & (uint32_t)(0xffffffffull << (32 - 2 * nb));
+    }
+    return ((uint32_t)(ell - 1) << EBITS) | 1u;
+}
+
+// Segment tile ``tile`` (windows T0 = tile * TILE ..): stage the chunk,
+// build m-words, validity and minimizers, find the TRUE starts, chain
+// the last TRUE start across tiles through st_lts, and mark every run
+// start in s.flags (F_START) and the start bitmap s.sb, for the tile's
+// windows (index v = window - (T0 - 1), v = 1 .. TILE) and the LMAX
+// windows past it.  Returns through ``live`` this thread's count of live
+// starts (valid, below n) among its ITEMS windows v0 = 1 + tid * ITEMS
+// .., and through ``starts`` its count of every start below n.  The
+// flags of other threads are read only after the caller's next barrier.
+__device__ __forceinline__ void segment_chunk_tile(const uint32_t* __restrict__ packed,
+                                                   long long npk,
+                                                   const uint32_t* __restrict__ bitmap,
+                                                   long long nbm, const Geo& g, const Smem& s,
+                                                   long long tile, unsigned long long* st_lts,
+                                                   long long& live, long long& starts) {
+    __shared__ long long s_lts_in;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const long long T0 = tile * TILE;
+    const long long base = T0 - 1;              // position (and window) of index 0
+    const long long wa = base >> 4, ba = base >> 5;
+
+    // 1. stage the packed words and the bitmap words, positions outside
+    //    [0, L) marked invalid
+    for (int j = tid; j < g.NPW; j += THREADS) {
+        const long long gw = wa + j;
+        s.pw[j] = (gw >= 0 && gw < npk) ? packed[gw] : 0u;
+    }
+    for (int j = tid; j < g.NBW; j += THREADS) {
+        const long long gw = ba + j, lo = 32 * gw;
+        uint32_t m = (gw >= 0 && gw < nbm) ? bitmap[gw] : 0u;
+        if (lo < 0 || lo >= g.L) m = 0xffffffffu;
+        else if (lo + 32 > g.L) m |= 0xffffffffu << (int)(g.L - lo);
+        s.bm[j] = m;
+    }
+    for (int j = tid; j < NSB; j += THREADS) s.sb[j] = 0u;
+    __syncthreads();
+
+    // 2. m-words; bitmap prefix popcounts (warp 0)
+    const int sh0 = (int)(base & 15);
+    for (int i = tid; i < g.NR; i += THREADS) {
+        const int p = sh0 + i;                  // position - 16 * wa
+        const unsigned long long pair =
+            s.pw[p >> 4] | ((unsigned long long)s.pw[(p >> 4) + 1] << 32);
+        s.raw[i] = pairrev((uint32_t)(pair >> (2 * (p & 15))));
+    }
+    if (tid < 32) {
+        uint32_t carry = 0;
+        for (int j0 = 0; j0 < g.NBW; j0 += 32) {
+            const int j = j0 + lane;
+            const uint32_t c = j < g.NBW ? (uint32_t)__popc(s.bm[j]) : 0u;
+            uint32_t inc = c;
+            for (int d = 1; d < 32; d <<= 1) {
+                const uint32_t y = __shfl_up_sync(FULL_MASK, inc, d);
+                if (lane >= d) inc += y;
+            }
+            if (j < g.NBW) s.pre[j] = carry + inc - c;
+            carry += __shfl_sync(FULL_MASK, inc, 31);
+        }
+    }
+    __syncthreads();
+
+    // 3. van Herk / Gil-Werman: prefix and suffix minima in blocks of w
+    block_prefix_suffix_min(s.raw, s.P, s.S, g.NRS, g.w);
+    __syncthreads();
+
+    // 4. validity and TRUE starts: this thread's ITEMS windows, and (warp
+    //    0) the LMAX windows past the tile; the last TRUE start below n
+    const int q0 = (int)(base - 32 * ba);
+    const int v0 = 1 + tid * ITEMS;
+    bool pv;
+    uint32_t pm = window_minv(g, s, v0 - 1, q0, pv);
     long long loc = -1;
     for (int j = 0; j < ITEMS; ++j) {
-        int v = threadIdx.x * ITEMS + j + 1;
-        long long x = T0 + v - 1;
-        if (x < g.n && (t.flags[v] & F_TRUE)) loc = x;
+        const int v = v0 + j;
+        const long long x = base + v;
+        bool val;
+        const uint32_t mv = window_minv(g, s, v, q0, val);
+        const bool tb = x == 0 || mv != pm || val != pv;
+        s.flags[v] = (val ? F_VALID : 0) | (tb ? F_TRUE : 0);
+        if (tb && x < g.n) loc = x;
+        pm = mv;
+        pv = val;
     }
-    long long tot;
-    block_excl_scan(loc, -1LL, MaxOp(), tot);
-    return tot;
-}
-
-// Pass 1 of both kernels: the last TRUE start inside each tile (-1 if
-// none).  ``static``: each kernel source gets its own copy.
-static __global__ void __launch_bounds__(THREADS)
-tile_true_starts(const uint32_t* __restrict__ codes, Geo g, long long* tile_lts) {
-    Tile t = carve(g);
-    const long long T0 = (long long)blockIdx.x * TILE;
-    segment_tile(codes, g, T0, t);
-    long long tot = block_last_true_start(g, T0, t);
-    if (threadIdx.x == 0) tile_lts[blockIdx.x] = tot;
-}
-
-// Mark run starts (F_START) for windows T0 .. T0+TILE+LMAX given the
-// last TRUE start before the tile (lts_in, -1 if none).  Windows at or
-// past n count as starts (the stream end closes every run).  Returns
-// this thread's count of live starts among its ITEMS windows.
-__device__ inline int mark_starts(const Geo& g, long long T0, long long lts_in,
-                                  const Tile& t) {
-    const int t0 = threadIdx.x * ITEMS;
-    long long loc = -1;
-    for (int j = 0; j < ITEMS; ++j) {
-        int v = t0 + j + 1;
-        if (t.flags[v] & F_TRUE) loc = T0 + t0 + j;
+    if (tid < LMAX) {
+        const int v = TILE + 1 + tid;
+        bool val, val0;
+        const uint32_t mv = window_minv(g, s, v, q0, val);
+        const uint32_t m0 = window_minv(g, s, v - 1, q0, val0);
+        s.flags[v] = (val ? F_VALID : 0) | ((mv != m0 || val != val0) ? F_TRUE : 0);
     }
-    long long tot;
-    long long pre = block_excl_scan(loc, -1LL, MaxOp(), tot);
-    long long cur = pre > lts_in ? pre : lts_in;
-    int live = 0;
+    long long lts_tot;
+    const long long lts_pre = block_excl_scan(loc, -1LL, MaxOp(), lts_tot);
+
+    // 5. the last TRUE start before the tile (chained max-scan)
+    if (tid < 32) {
+        if (tid == 0) publish(st_lts, tile, lts_tot, 1LL);
+        const long long in = resolve(st_lts, tile, lts_tot, MaxOp(), -1LL, 1LL);
+        if (tid == 0) s_lts_in = in;
+    }
+    __syncthreads();
+    const long long lts_in = s_lts_in;
+
+    // 6. run starts (the LMAX cap anchored at the last TRUE start); live
+    //    starts are valid and below n
+    long long cur = lts_pre > lts_in ? lts_pre : lts_in;
+    live = 0;
+    starts = 0;
     for (int j = 0; j < ITEMS; ++j) {
-        int v = t0 + j + 1;
-        long long x = T0 + t0 + j;
-        uint8_t f = t.flags[v];
+        const int v = v0 + j;
+        const long long x = base + v;
+        const uint8_t f = s.flags[v];
         if (f & F_TRUE) cur = x;
-        long long p1 = x - cur;
-        bool b = (f & F_TRUE) || ((f & F_VALID) && p1 > 0 && (p1 & (LMAX - 1)) == 0);
-        if (x >= g.n) b = true;
+        const long long p1 = x - cur;
+        const bool b = (f & F_TRUE) || ((f & F_VALID) && p1 > 0 && (p1 & (LMAX - 1)) == 0) ||
+                       x >= g.n;
         if (b) {
-            t.flags[v] = f | F_START;
-            if ((f & F_VALID) && x < g.n) ++live;
+            mark_start(s, v, f);
+            if (x < g.n) {
+                ++starts;
+                if (f & F_VALID) ++live;
+            }
         }
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        long long c = tot > lts_in ? tot : lts_in;
-        for (int v = TILE + 1; v < NV; ++v) {
-            long long x = T0 + v - 1;
-            uint8_t f = t.flags[v];
-            if (f & F_TRUE) c = x;
-            long long p1 = x - c;
-            bool b = (f & F_TRUE) || ((f & F_VALID) && p1 > 0 && (p1 & (LMAX - 1)) == 0);
-            if (x >= g.n) b = true;
-            if (b) t.flags[v] = f | F_START;
+    if (tid < 32) {
+        const int v = TILE + 1 + lane;
+        const long long x = base + v;
+        const uint8_t f = lane < LMAX ? s.flags[v] : 0;
+        long long t = (f & F_TRUE) ? x : -1;
+        for (int d = 1; d < 32; d <<= 1) {
+            const long long y = __shfl_up_sync(FULL_MASK, t, d);
+            if (lane >= d) t = y > t ? y : t;
         }
+        long long c = lts_tot > lts_in ? lts_tot : lts_in;
+        c = t > c ? t : c;
+        const long long p1 = x - c;
+        const bool b = (f & F_TRUE) || ((f & F_VALID) && p1 > 0 && (p1 & (LMAX - 1)) == 0) ||
+                       x >= g.n;
+        if (lane < LMAX && b) mark_start(s, v, f);
     }
-    __syncthreads();
-    return live;
 }
 
-// Write the run row of the live start at window x (index v) to row pos
-// of Wc+1 u32 columns of stride ld: the span-masked content words, then
-// the meta word (ell-1) << 26 | 1.  Needs mark_starts' flags.
-__device__ inline void write_live_row(const Geo& g, const Tile& t, int v, long long x,
-                                      uint32_t* __restrict__ out, long long ld,
-                                      long long pos) {
-    int ell = LMAX;
-    for (int d = 1; d <= LMAX; ++d) {
-        if (x + d >= g.n || (t.flags[v + d] & F_START)) {
-            ell = d;
-            break;
-        }
+// Separator list -> invalid bitmap (the bitmap is zeroed before); indices
+// at or past L are dropped.
+static __global__ void sep_bitmap(const uint32_t* __restrict__ sep, long long nsep, long long L,
+                                  uint32_t* bm) {
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nsep;
+         i += (long long)gridDim.x * blockDim.x) {
+        const uint32_t p = sep[i];
+        if (p < L) atomicOr(bm + (p >> 5), 1u << (p & 31));
     }
-    const int span = ell + g.k - 1;
-    for (int c = 0; c < g.Wc; ++c) {
-        // keep the top 2*nb bits, nb = bases of the span in word c;
-        // the shift is done in 64 bits because nb == 0 shifts by 32,
-        // which is undefined for a 32-bit operand
-        const int nb = min(max(span - 16 * c, 0), 16);
-        const uint32_t mask = (uint32_t)(0xffffffffull << (32 - 2 * nb));
-        out[(long long)c * ld + pos] = t.raw[v + 16 * c] & mask;
-    }
-    out[(long long)g.Wc * ld + pos] = ((uint32_t)(ell - 1) << EBITS) | 1u;
 }
 
-// Host side: let the nk kernels ks[] take sm bytes of dynamic shared
-// memory (above the 48 KB default when needed).  Returns a cudaError_t.
-__host__ inline int set_smem(const void* const* ks, int nk, size_t sm) {
+// u32 words of the bitmap a separator list is scattered into (0 for a
+// dense chunk), rounded up to whole int64 scratch words.
+__host__ inline long long bitmap_scratch(long long L, int dense) {
+    return dense ? 0 : ((L + 31) / 32 + 1) / 2;
+}
+
+// Host side, both kernels, after the caller zeroed its scratch: let
+// ``kern`` take the tile's shared memory, and point *bm / *nbm at the
+// invalid bitmap, the dense one as given or ``built`` after the
+// separator list is scattered into it.  Returns a cudaError_t.
+__host__ inline int stage_bitmap(const void* kern, const Geo& g, const void* sep, long long nsep,
+                                 int dense, uint32_t* built, cudaStream_t s,
+                                 const uint32_t** bm, long long* nbm) {
+    const size_t sm = smem_bytes(g);
     if (sm > 227 * 1024) return (int)cudaErrorInvalidValue;
-    if (sm > 48 * 1024) {
-        for (int i = 0; i < nk; ++i) {
-            cudaError_t e = cudaFuncSetAttribute(
-                ks[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
-            if (e != cudaSuccess) return (int)e;
+    cudaError_t e;
+    if (sm > 48 * 1024 &&
+        (e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm)) !=
+            cudaSuccess)
+        return (int)e;
+    *bm = static_cast<const uint32_t*>(sep);
+    *nbm = nsep;
+    if (!dense) {
+        if (nsep > 0) {
+            sep_bitmap<<<fill_blocks(nsep, 256), 256, 0, s>>>(static_cast<const uint32_t*>(sep),
+                                                              nsep, g.L, built);
+            if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
         }
+        *bm = built;
+        *nbm = (g.L + 31) / 32;
     }
     return 0;
 }

@@ -33,8 +33,9 @@ from .sortcount import M32, u32
 BLOCK_COMPENSATION = 4
 
 
-def make_bloom(bits: int, device="cpu") -> torch.Tensor:
-    """One stage's bit array as int32 words; ``bits`` is a power of two."""
+def make_bloom(bits: int, device) -> torch.Tensor:
+    """One stage's bit array as int32 words on ``device``; ``bits`` is a
+    power of two."""
     if bits % 32 or bits & (bits - 1):
         raise ValueError(f"bits must be a power of two >= 32, got {bits}")
     return torch.zeros(bits // 32, dtype=torch.int32, device=device)

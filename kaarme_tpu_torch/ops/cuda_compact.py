@@ -24,8 +24,6 @@ import torch
 from . import _build
 from .sortcount import _clamp_count, i32, u32
 
-_TILE = 2048   # rows per block of the kernel (segsum_compact.cu)
-
 
 def _check_inputs(keys, cnt, ebits, out_len):
     if keys.dim() != 2 or keys.dtype != torch.int32:
@@ -58,25 +56,39 @@ def segsum_compact(keys: torch.Tensor, cnt: "torch.Tensor | None" = None, *,
         return segsum_compact_torch(keys, cnt, ebits=ebits, out_len=out_len)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
+    out = torch.empty((W + 1, out_len), dtype=torch.int32, device=keys.device)
+    return launch_compact(keys, cnt, out, out_len, ebits=ebits)
+
+
+segsum_compact.launches = 0
+
+
+def launch_compact(keys: torch.Tensor, cnt: "torch.Tensor | None", out: torch.Tensor,
+                   out_len: int, *, ebits: int = 0):
+    """Launch K2 into ``out`` ((W+1, ld) int32 on the card, ld >= out_len):
+    rows [0, out_len) of every column are written, columns past
+    ``out_len`` are not touched.  Returns (keys, counts, nd) as
+    ``segsum_compact`` does."""
+    W, N, out_len = _check_inputs(keys, cnt, ebits, out_len)
+    if (out.dtype != torch.int32 or out.dim() != 2 or out.shape[0] != W + 1
+            or out.shape[1] < out_len or out.stride(1) != 1 or out.device != keys.device):
+        raise ValueError("out must be an int32 (W+1, >= out_len) row-major tensor "
+                         "on the keys' device")
     keys = keys.contiguous()
     cnt = None if cnt is None else cnt.contiguous()
     dev = keys.device
     with torch.cuda.device(dev):
-        out = torch.empty((W + 1, out_len), dtype=torch.int32, device=dev)
-        nt = -(-N // _TILE)
-        scratch = torch.empty(2 * nt + 1, dtype=torch.int64, device=dev)
+        lib = _build.lib()
+        scratch = torch.empty(lib.kt_segsum_compact_scratch(N), dtype=torch.int64, device=dev)
         nd = torch.empty(2, dtype=torch.int32, device=dev)
-        err = _build.lib().kt_segsum_compact(
+        err = lib.kt_segsum_compact(
             keys.data_ptr(), None if cnt is None else cnt.data_ptr(), N, W,
             ebits if cnt is None else 0, int(cnt is not None), out.data_ptr(),
             out.stride(0), out_len, scratch.data_ptr(), nd.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_segsum_compact")
     segsum_compact.launches += 1
-    return out[:W], out[W], nd
-
-
-segsum_compact.launches = 0
+    return out[:W, :out_len], out[W, :out_len], nd
 
 
 def segsum_compact_torch(keys: torch.Tensor, cnt: "torch.Tensor | None" = None, *,

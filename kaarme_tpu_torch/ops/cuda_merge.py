@@ -93,10 +93,11 @@ def launch_merge(a, b, out: torch.Tensor, out_len: int, *, embedded: bool, ebits
     with torch.cuda.device(dev):
         merged = torch.empty((W + 1, n), dtype=torch.int32, device=dev)
         split = torch.empty(-(-n // tile) + 1, dtype=torch.int64, device=dev)
-        k2_scratch = torch.empty(2 * -(-n // cuda_compact._TILE) + 1, dtype=torch.int64,
+        lib = _build.lib()
+        k2_scratch = torch.empty(lib.kt_segsum_compact_scratch(n), dtype=torch.int64,
                                  device=dev)
         nd = torch.empty(2, dtype=torch.int32, device=dev)
-        err = _build.lib().kt_merge_compact(
+        err = lib.kt_merge_compact(
             a.data_ptr(), a.stride(0), na, None if embedded else a[W].data_ptr(),
             b.data_ptr(), b.stride(0), nb, W, ebits if embedded else 0, tile,
             merged.data_ptr(), split.data_ptr(), k2_scratch.data_ptr(),

@@ -3,10 +3,13 @@
 rows) and ``run_rows_slotted_pallas`` (K5, slotted run rows).
 
 ``run_rows_dense`` and ``run_rows_slotted`` launch the hand-written
-kernels (``csrc/skm_dense.cu``; ``csrc/skm_slotted.cu`` on the
-segmentation ``csrc/skm_seg.cuh``) on CUDA tensors and run the plain
-PyTorch versions, ``run_rows_dense_plain`` and ``run_rows_slotted_torch``
-(which share ``_segment``), on CPU tensors.
+kernels (``csrc/skm_dense.cu`` and ``csrc/skm_slotted.cu``, both on the
+one-pass segmentation ``csrc/skm_seg.cuh``) on CUDA tensors and run the
+plain PyTorch versions, ``run_rows_dense_plain`` and
+``run_rows_slotted_plain``, on CPU tensors.  Both read the transfer
+chunk; their plain versions unpack it (``codes_from_chunk``) and call
+the definitions from codes, ``run_rows_dense_torch`` and
+``run_rows_slotted_torch`` (which share ``_segment``).
 
 Dense contract (K1): the transfer chunk of an n-window superstep —
 ``packed`` int32 [>= ceil(L / 16)] 2-bit bases (base i at bits 2*(i%16)
@@ -22,11 +25,11 @@ are int32 [L] (bits 0-1 base, bit 2 invalid).  rows_used == rows_exact;
 rows_used > cap means the capacity overflowed: the first ``cap`` rows
 are written, nothing past them, and the caller replays larger.
 
-Slotted contract (K5): codes as ``run_rows_dense_torch`` takes them and
-the same run rows, laid out by slot
-tile: the windows fall into tiles of 512 numbered from the first window,
-and slot s of tile t (row t*S + s) holds the row of the tile's (s+1)-th
-run start.  Every start counts, dead (invalid) ones too, and a dead
+Slotted contract (K5): the chunk as K1 takes it (its definition,
+``run_rows_slotted_torch``, takes codes as ``run_rows_dense_torch``
+does) and the same run rows, laid out by slot tile: the windows fall
+into tiles of 512 numbered from the first window, and slot s of tile t
+(row t*S + s) holds the row of the tile's (s+1)-th run start.  Every start counts, dead (invalid) ones too, and a dead
 start's row is all-ones; slots past the tile's start count are all-ones
 and starts past S are dropped.  Returns (Wc + 1 int32 columns of
 ceil(n / 512) * S rows, int32 max_tile_runs); max_tile_runs > S means
@@ -48,7 +51,6 @@ from .sortcount import codes_from_chunk, i32
 M = 16          # minimizer m-mer length (one word)
 LMAX = 16       # run length cap (windows)
 EBITS = 26      # meta layout: (ell-1) << 26 | count
-_TILE = 1024    # windows per block of K5 (skm_seg.cuh), for its scratch
 SLOT_TILE = 512 # windows per slot tile (K5)
 
 
@@ -223,24 +225,29 @@ def _check_slots(S: int):
         raise ValueError(f"S must be in [1, {SLOT_TILE}], got {S}")
 
 
-def run_rows_slotted(codes: torch.Tensor, *, k: int, n: int, S: int):
-    """Slotted run rows of an n-window stream (see the module docstring)."""
-    _check_inputs(codes, k, n, 0)
+def run_rows_slotted(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, S: int,
+                     dense: bool = False):
+    """Slotted run rows of an n-window stream straight from its transfer
+    chunk (see the module docstring)."""
+    _check_chunk(packed, sep, k, n, 0, dense)
     _check_slots(S)
-    if codes.device.type == "cpu":
-        return run_rows_slotted_torch(codes, k=k, n=n, S=S)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
-    codes = codes.contiguous()
-    dev = codes.device
+    if packed.device.type == "cpu":
+        return run_rows_slotted_plain(packed, sep, k=k, n=n, S=S, dense=dense)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    packed, sep = packed.contiguous(), sep.contiguous()
+    dev = packed.device
     R = slot_rows(n, S)
     with torch.cuda.device(dev):
+        lib = _build.lib()
         out = torch.empty((content_words(k) + 1, R), dtype=torch.int32, device=dev)
-        scratch = torch.empty(-(-n // _TILE), dtype=torch.int64, device=dev)
+        scratch = torch.empty(lib.kt_skm_slotted_scratch(n, n + k - 1, int(dense)),
+                              dtype=torch.int64, device=dev)
         maxruns = torch.empty(1, dtype=torch.int32, device=dev)
-        err = _build.lib().kt_skm_slotted(
-            codes.data_ptr(), codes.shape[0], n, k, S, out.data_ptr(), out.stride(0),
-            scratch.data_ptr(), maxruns.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.kt_skm_slotted(
+            packed.data_ptr(), packed.shape[0], sep.data_ptr(), sep.shape[0], int(dense), n, k,
+            S, out.data_ptr(), out.stride(0), scratch.data_ptr(), maxruns.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_skm_slotted")
     run_rows_slotted.launches += 1
     return tuple(out.unbind(0)), maxruns[0]
@@ -249,8 +256,17 @@ def run_rows_slotted(codes: torch.Tensor, *, k: int, n: int, S: int):
 run_rows_slotted.launches = 0
 
 
+def run_rows_slotted_plain(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, S: int,
+                           dense: bool = False):
+    """Plain PyTorch version of ``run_rows_slotted``: the function's
+    definition, ``codes_from_chunk`` then ``run_rows_slotted_torch``."""
+    _check_chunk(packed, sep, k, n, 0, dense)
+    return run_rows_slotted_torch(codes_from_chunk(packed, sep, k=k, n=n, dense=dense),
+                                  k=k, n=n, S=S)
+
+
 def run_rows_slotted_torch(codes: torch.Tensor, *, k: int, n: int, S: int):
-    """Plain PyTorch version of ``run_rows_slotted``: the segmentation of
+    """``run_rows_slotted``'s definition, from codes: the segmentation of
     ``run_rows_dense_torch``, each start's ordinal in its tile by a
     cumulative sum, and a scatter of the kept start rows into their
     slots (the reference's ``pack_slots`` semantics, without its one-hot

@@ -1,9 +1,9 @@
 """Super-k-mer (minimizer-run) pipeline in PyTorch — the counterpart of
 ``kaarme_tpu/ops/skm.py``, the subset the main path runs.
 
-Per superstep: segment the transfer chunk into run rows — dense (K1,
-which reads the chunk itself) or slotted, S rows per 512-window tile
-(the chunk unpacked to codes, then K5; ``cuda_skm``) —
+Per superstep: segment the transfer chunk into run rows — dense (K1)
+or slotted, S rows per 512-window tile (K5); both read the chunk
+itself (``cuda_skm``) —
 sort the run-store prefix ++ the new rows by their Wc + 1 words
 (``sortcount.lexsort``) and merge equal rows with the embedded-count
 segment-sum (K2, ``cuda_compact``, ebits = 26).  At finalize, every
@@ -24,7 +24,7 @@ from ..utils.codec import words_per_kmer
 from . import cuda_skm
 from .cuda_skm import EBITS, LMAX, M, content_words
 from .sortcount import (M32, _bloom_miss_mask, _is_sentinel_i32, _kernel_finish,
-                        _pairrev32, codes_from_chunk, compact_clamped, dead_fill, i32,
+                        _pairrev32, compact_clamped, dead_fill, i32,
                         lexsort, make_store, next_store_size, u32)
 
 
@@ -52,11 +52,10 @@ def skm_segpack_dense_step(packed, sep, *, k: int, n: int, cap: int,
 def skm_segpack_step(packed, sep, *, k: int, n: int, S: int, dense: bool = False,
                      kernels: str = "cuda"):
     """Transfer chunk -> slotted run rows (Wc+1 columns of
-    ceil(n / 512) * S rows) and int32 max_tile_runs (K5)."""
-    codes = codes_from_chunk(packed, sep, k=k, n=n, dense=dense)
-    if kernels == "plain":
-        return cuda_skm.run_rows_slotted_torch(codes, k=k, n=n, S=S)
-    return cuda_skm.run_rows_slotted(codes, k=k, n=n, S=S)
+    ceil(n / 512) * S rows) and int32 max_tile_runs: K5 reads the chunk
+    itself."""
+    fn = cuda_skm.run_rows_slotted_plain if kernels == "plain" else cuda_skm.run_rows_slotted
+    return fn(packed, sep, k=k, n=n, S=S, dense=dense)
 
 
 def _merge_slotted(rows, extra, prefix, kernels: str):

@@ -53,7 +53,8 @@ def test_set_and_contains_roundtrip():
     r1 = rng.integers(0, 2**32, size=100, dtype=np.uint32)
     r2 = rng.integers(0, 2**32, size=100, dtype=np.uint32)
     active = np.arange(100) % 2 == 0
-    bf = bloom.set_bits(bloom.make_bloom(1 << 12), _t(r1), _t(r2), 5, torch.from_numpy(active))
+    bf = bloom.set_bits(bloom.make_bloom(1 << 12, device="cpu"), _t(r1), _t(r2), 5,
+                        torch.from_numpy(active))
     got = bloom.contains(bf, _t(r1), _t(r2), 5).numpy()
     assert got[::2].all() and got[1::2].sum() < 10
     ref = ref_bloom.set_bits(ref_bloom.make_bloom(1 << 12), jnp.asarray(r1), jnp.asarray(r2),
@@ -66,7 +67,8 @@ def test_set_bits_lands_every_bit_under_contention():
     n = 4096
     r1 = (np.arange(n, dtype=np.uint64) * 2654435761 % (1 << 32)).astype(np.uint32)
     r2 = (np.arange(n, dtype=np.uint64) * 40503 + 7).astype(np.uint32)
-    bf = bloom.set_bits(bloom.make_bloom(1 << 10), _t(r1), _t(r2), 7, torch.ones(n, dtype=torch.bool))
+    bf = bloom.set_bits(bloom.make_bloom(1 << 10, device="cpu"), _t(r1), _t(r2), 7,
+                        torch.ones(n, dtype=torch.bool))
     assert bool(bloom.contains(bf, _t(r1), _t(r2), 7).all())
     ref = ref_bloom.set_bits(ref_bloom.make_bloom(1 << 10), jnp.asarray(r1), jnp.asarray(r2), 7,
                              jnp.ones((n,), bool))

@@ -118,6 +118,47 @@ def test_full_sum_matches_pallas_and_xla(seed):
                                                       for c in xla], 1))
 
 
+@pytest.mark.parametrize("embedded", [True, False], ids=["embedded", "full_sum"])
+def test_segment_across_tiles_matches_pallas_and_xla(embedded):
+    """One key over rows 100 .. 4900, across two boundaries of the CUDA
+    kernel's 2048-row tiles, whose total crosses the 2^20 clamp: in
+    embedded mode c_last + len - 1 with c_last near 2^20, in full_sum
+    mode ~4800 counts near 2^19 (a clamped sum that crosses 2^20 again
+    and again).  Short segments and sentinel rows around it."""
+    rng = np.random.default_rng(9)
+    W, N = (3, 5200) if embedded else (2, 5200)
+    keys = rng.integers(0, 1 << 32, (N, W), dtype=np.uint64).astype(np.uint32)
+    keys[100:4900] = keys[100]
+    if embedded:
+        keys[:, -1] &= np.uint32(~((1 << EB) - 1) & SENT)
+        keys[:, -1] |= np.uint32(1)
+        keys[4899, -1] |= np.uint32((1 << 20) - 10)
+    keys[5100:] = SENT
+    cols = [keys[:, w].copy() for w in range(W)]
+    if not embedded:
+        cnt = rng.integers(1 << 18, 1 << 19, N).astype(np.uint32)
+        cnt[5100:] = 0
+        cols.append(cnt)
+    order = np.lexsort(tuple(cols[:W][::-1]))
+    cols = [c[order] for c in cols]
+    arr, (nd, ndu) = _port_finish(cols, N, embedded)
+    assert nd == ndu
+    if embedded:
+        jcols = tuple(jnp.asarray(c) for c in cols)
+        ref, rndv = ref_sc._pallas_finish(jcols, N, True, EB, True)
+        xla, xnd = ref_sc._compact_embedded(list(jcols), EB)
+    else:
+        jcols = tuple(jnp.asarray(c) for c in cols[:-1]) + (jnp.asarray(cols[-1].astype(np.int32)),)
+        ref, rndv = ref_sc._pallas_finish(jcols, N, False, 0, True, full_sum=True)
+        xla, xnd = ref_sc.compact(jcols, clamped=True)
+    assert nd == int(rndv[0]) == int(xnd)
+    np.testing.assert_array_equal(arr[:nd], _ref_live(ref, int(rndv[1])))
+    np.testing.assert_array_equal(arr[:nd], np.stack([np.asarray(c)[:nd].astype(np.uint32)
+                                                      for c in xla], 1))
+    big = arr[:nd, -1].max()
+    assert (1 << 20) < big < (1 << 21)
+
+
 def test_cap_cut_reports_overflow():
     cols = _embedded_case(2)
     arr_full, (nd, _) = _port_finish(cols, cols[0].shape[0], True)

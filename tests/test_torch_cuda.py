@@ -110,27 +110,40 @@ def test_k1_writes_nothing_past_cap(dev, dense):
         assert torch.equal(a, b)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,n,S", [(16, 5000, 96), (31, 1 << 15, 16), (51, 1 << 20, 96),
-                                   (51, 777, 8), (101, 100_003, 512), (17, 1 << 16, 4)])
-def test_k5_kernel_equals_plain(dev, k, n, S):
-    """Slotted rows and max_tile_runs bit for bit; n = 777 and 100,003
-    end in a partial slot tile, and S = 4 (and 8, 16) overflow: the same
-    rows are dropped."""
-    c = _codes(n, k, seed=k + S)
-    if S == 4:
-        c[:] = np.random.default_rng(4).integers(0, 4, c.shape[0])   # minimizer churn
-    codes = torch.from_numpy(c).to(dev)
-    got = cuda_skm.run_rows_slotted(codes, k=k, n=n, S=S)
-    want = cuda_skm.run_rows_slotted_torch(codes, k=k, n=n, S=S)
+def _k5_equal(dev, packed, s, k, n, S, dense):
+    p, s = _dev(packed, dev), _dev(s, dev)
+    got = cuda_skm.run_rows_slotted(p, s, k=k, n=n, S=S, dense=dense)
+    want = cuda_skm.run_rows_slotted_plain(p, s, k=k, n=n, S=S, dense=dense)
     torch.cuda.synchronize()
     assert int(got[1]) == int(want[1])
-    if S <= 16:
-        assert int(want[1]) > S
     assert len(got[0]) == len(want[0]) == cuda_skm.content_words(k) + 1
     for a, b in zip(got[0], want[0]):
         assert a.shape[0] == cuda_skm.slot_rows(n, S)
         assert torch.equal(a, b)
+    return int(want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+@pytest.mark.parametrize("k,n,S", [(16, 5000, 96), (31, 1 << 15, 16), (51, 1 << 20, 96),
+                                   (51, 777, 8), (101, 100_003, 512), (17, 1 << 16, 4)])
+def test_k5_kernel_equals_plain(dev, k, n, S, dense):
+    """From the chunk, in both formats: slotted rows and max_tile_runs
+    bit for bit; n = 777 and 100,003 end in a partial slot tile, and S =
+    4 (and 8, 16) overflow: the same rows are dropped.  The chunk's
+    poly-A stretch keeps one minimizer across tiles."""
+    packed, sep, mask = _chunk(n, k, seed=k + S, no_sep=S == 4)   # S = 4: minimizer churn
+    most = _k5_equal(dev, packed, mask if dense else sep, k, n, S, dense)
+    if S <= 16:
+        assert most > S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+def test_k5_chunk_without_separators(dev, dense):
+    k, n = 51, 70_001
+    packed, sep, mask = _chunk(n, k, seed=2, no_sep=True)
+    assert _k5_equal(dev, packed, mask if dense else sep[:0], k, n, 96, dense) > 0
 
 
 @pytest.mark.cuda
@@ -235,6 +248,74 @@ def test_k3_kernel_equals_plain(dev, k, n):
     assert len(got) == len(want) == -(-k // 16)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+def _k2_equal(keys, cnt, eb, out_len, guard=0):
+    """The kernel against the plain version; with ``guard``, launched
+    into a buffer with that many columns past out_len, which must stay
+    untouched."""
+    W = keys.shape[0]
+    want = cuda_compact.segsum_compact_torch(keys, cnt, ebits=eb, out_len=out_len)
+    if guard:
+        out = torch.full((W + 1, out_len + guard), 0x5A5A5A5A, dtype=torch.int32,
+                         device=keys.device)
+        got = cuda_compact.launch_compact(keys, cnt, out, out_len, ebits=eb)
+    else:
+        got = cuda_compact.segsum_compact(keys, cnt, ebits=eb, out_len=out_len)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if guard:
+        assert bool((out[:, out_len:] == 0x5A5A5A5A).all())
+    return [int(x) for x in want[2]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embedded", [True, False], ids=["embedded", "full_sum"])
+@pytest.mark.parametrize("N", [0, 1, 2047, 2048, 2049])
+@pytest.mark.parametrize("W", [1, 5, 6, 15])
+def test_k2_tile_edges_equal_plain(dev, W, N, embedded):
+    """N at the edges of the kernel's 2048-row tile, at the widths the
+    paths pass (k=13: 1, finalize: 5, k=51 merge: 6, k=201 merge: 15);
+    out_len above N (the tail fill) and below nd (a guard past it)."""
+    keys, cnt = _sorted_rows(dev, W, N, embedded, seed=W * 11 + N)
+    eb = 26 if embedded else 0
+    nd = _k2_equal(keys, cnt, eb, N)[0]
+    _k2_equal(keys, cnt, eb, N + 100, guard=64)
+    _k2_equal(keys, cnt, eb, nd // 2, guard=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embedded", [True, False], ids=["embedded", "full_sum"])
+def test_k2_segment_across_tiles_equals_plain(dev, embedded):
+    """One key over more than 64 tiles (its first rows' carry comes only
+    from the look-back, over more than one round of 32 tiles), whose
+    total crosses the 2^20 clamp: embedded, c_last near 2^20 plus the
+    length; full_sum, ~2^17 counts near 2^20 (the clamped sum crosses
+    2^20 again and again).  Then an input of sentinels only."""
+    N = 66 * 2048 + 77
+    W = 2 if embedded else 1
+    rng = np.random.default_rng(13)
+    keys = rng.integers(0, 1 << 32, (W, N), dtype=np.uint64).astype(np.int64)
+    keys[:, 100:N - 300] = keys[:, 100:101]
+    keys[:, N - 50:] = 0xFFFFFFFF
+    if embedded:
+        keys[-1] = (keys[-1] & ~((1 << 26) - 1) & 0xFFFFFFFF) | 1
+        keys[-1, 100] |= (1 << 20) - 10
+        keys[:, N - 50:] = 0xFFFFFFFF
+    cols = [torch.from_numpy(keys[w].astype(np.uint32).view(np.int32)).to(dev) for w in range(W)]
+    if not embedded:
+        c = rng.integers((1 << 20) - 3, 1 << 20, N)
+        c[N - 50:] = 0
+        cols.append(torch.from_numpy(c.astype(np.int32)).to(dev))
+    s = sortcount.lexsort(cols, num_keys=W)
+    k, c = (s, None) if embedded else (s[:W].contiguous(), s[W].contiguous())
+    eb = 26 if embedded else 0
+    nd = _k2_equal(k, c, eb, N, guard=16)[0]
+    assert nd > 2
+    _k2_equal(k, c, eb, nd - 1, guard=16)
+    sent = torch.full((3, 5000), -1, dtype=torch.int32, device=dev)
+    assert _k2_equal(sent, None, 26, 5000, guard=8) == [0, 0]
 
 
 def _runs(dev, W, na, nb, embedded, seed, pad_a=0, pad_b=0, span=40):

@@ -1,11 +1,14 @@
 """K5 (slotted run segmentation) of the PyTorch port, held exactly to
-the JAX package: the plain version (what the CPU runs) against the
-reference's ``run_rows`` + ``pack_slots`` and against
-``pallas_skm.run_rows_slotted_pallas(interpret=True)``, on the cases of
-tests/test_pallas_skm.py, plus an unaligned tail against the NumPy
-mirror ``skm.run_rows_np``.  Every quantity is an integer, so the
-tolerance is 0.  The CUDA kernel itself is compared with the plain
-version on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+the JAX package: the wrapper on CPU tensors (its plain version, what the
+CPU runs), fed the transfer chunk as the counter ships it
+(``fastio.pack_stream_np``: packed 2-bit words and the separator list,
+or the dense bitmap), against the reference's ``run_rows`` +
+``pack_slots`` and against ``pallas_skm.run_rows_slotted_pallas
+(interpret=True)``, on the cases of tests/test_pallas_skm.py, plus an
+unaligned tail against the NumPy mirror ``skm.run_rows_np``.  Every
+quantity is an integer, so the tolerance is 0.  The CUDA kernel itself
+is compared with the plain version on the card by
+tests/test_torch_cuda.py and chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ import jax.numpy as jnp
 
 from bench import make_reads
 from kaarme_tpu.ops import pallas_skm, skm, sortcount
+from kaarme_tpu_torch.io import fastio
 from kaarme_tpu_torch.ops import cuda_skm
 
 BLK = 128 * 128      # the JAX kernel's block at block_rows=128
@@ -36,8 +40,27 @@ def _codes32(codes):
     return torch.from_numpy(((codes & 3) | ((codes >= 4) << 2)).astype(np.int32))
 
 
-def _port(codes, k, n, S):
-    cols, maxruns = cuda_skm.run_rows_slotted(_codes32(codes), k=k, n=n, S=S)
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def _port(codes, k, n, S, fmt="sparse"):
+    """The wrapper from the chunk of ``codes``: the separator list
+    ("sparse"), the dense bitmap ("dense"), or ("out_of_range") a list
+    with entries past L that must be dropped (the last one negative as
+    int32) over packed words holding random bases at the invalid
+    positions, which must not matter."""
+    L = codes.shape[0]
+    bases = codes
+    if fmt == "out_of_range":
+        noise = np.random.default_rng(L).integers(0, 4, L).astype(np.uint8)
+        bases = np.where(codes >= 4, noise, codes)
+    packed, mask = fastio.pack_stream_np(bases)
+    sep = np.flatnonzero(codes >= 4).astype(np.uint32)
+    if fmt == "out_of_range":
+        sep = np.concatenate([sep, [L, L + 77, 0xFFFFFFF0]]).astype(np.uint32)
+    cols, maxruns = cuda_skm.run_rows_slotted(_t(packed), _t(mask if fmt == "dense" else sep),
+                                              k=k, n=n, S=S, dense=fmt == "dense")
     return [c.numpy().view(np.uint32) for c in cols], int(maxruns)
 
 
@@ -88,6 +111,17 @@ def test_plain_k5_matches_reference(k):
     _assert_same(got, _pallas(codes, k, n, S))
 
 
+@pytest.mark.parametrize("fmt", ["dense", "out_of_range"])
+@pytest.mark.parametrize("k", [16, 51])
+def test_chunk_k5_formats_match_reference(k, fmt):
+    """The dense bitmap, and a separator list with out-of-range entries
+    over noisy bases, give the slots of the plain separator list (which
+    the cases above hold to the reference)."""
+    n, S = BLK, 16
+    codes = _stream(np.random.default_rng(k + 7), n, k)
+    _assert_same(_port(codes, k, n, S, fmt), _port(codes, k, n, S))
+
+
 def test_plain_k5_slot_overflow_matches_reference():
     """Random stream (minimizer churn), S = 4: the same dropped rows and
     the same max_tile_runs > S."""
@@ -110,6 +144,7 @@ def test_plain_k5_runs_across_tiles_match_reference(case):
     got = _port(codes, k, n, S)
     _assert_same(got, _xla(codes, k, n, S))
     _assert_same(got, _pallas(codes, k, n, S))
+    _assert_same(_port(codes, k, n, S, "dense"), got)
 
 
 @pytest.mark.parametrize("k,n", [(16, 3000), (51, 777), (31, 1025), (101, 4096)])
@@ -121,7 +156,7 @@ def test_plain_k5_unaligned_tail_matches_mirror(k, n):
     codes = rng.integers(0, 4, n + k - 1).astype(np.uint8)
     codes[::97] = 4
     S = 512
-    cols, maxruns = _port(codes, k, n, S)
+    cols, maxruns = _port(codes, k, n, S, "out_of_range")
     rows = np.stack(cols, 1)
     assert rows.shape[0] == -(-n // 512) * S
     got = {}
@@ -147,7 +182,11 @@ def test_plain_k5_equals_dense_rows():
 
 
 def test_plain_k5_rejects_bad_slots():
-    codes = _codes32(np.zeros(100, np.uint8))
+    packed, sep = _t(np.zeros(7, np.uint32)), _t(np.zeros(3, np.uint32))
     for S in (0, 513):
         with pytest.raises(ValueError, match="S must be"):
-            cuda_skm.run_rows_slotted(codes, k=31, n=50, S=S)
+            cuda_skm.run_rows_slotted(packed, sep, k=31, n=50, S=S)
+    with pytest.raises(ValueError, match="bases"):
+        cuda_skm.run_rows_slotted(packed, sep, k=31, n=100, S=8)
+    with pytest.raises(ValueError, match="bitmap"):
+        cuda_skm.run_rows_slotted(packed, sep[:1], k=31, n=50, S=8, dense=True)

@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Time one kernel of two checkouts on one card, in turns, on chip_smoke's inputs.
+
+    python3 time_kernels.py --kernel k1|k2|k5 OTHER_ROOT [--reps 5]
+
+Run from the repository root.  Times a kernel of this checkout and of the
+checkout at OTHER_ROOT (for example the parent commit, unpacked with
+``git archive``) on the inputs chip_smoke.py builds (``read_stream`` +
+``chunk_of``: k=51, 2^26 windows of 150 bp reads sampled from a random
+4.6 Mb genome, with N patches, separators as a sparse list):
+
+- k1: ``cuda_skm.run_rows_dense`` at cap 2^23 (the skm counter's first
+  capacity);
+- k2: ``cuda_compact.segsum_compact`` at chip_smoke's three shapes: the
+  run-store merge (embedded, 6 columns), the finalize (full_sum, 4 + 1)
+  and the classic k=13 superstep (full_sum, 1 + 1), whose inputs come
+  from the plain versions;
+- k5: ``cuda_skm.run_rows_slotted`` at S=96.
+
+Where a checkout's K1 or K5 takes codes (before its chunk-input kernel),
+the timed call is ``sortcount.codes_from_chunk`` followed by it, as its
+main path ran them.  Each checkout runs in its own process (the packages
+share a name), in the order other, this, this, other; each process builds
+its kernels first and prints one JSON line: CUDA-event medians of
+``--reps`` calls after a warm-up, and a digest of the outputs, which must
+agree.  The card's name and power limit come first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CAP = 1 << 23
+S_SLOTS = 96
+
+
+def chip_smoke():
+    """This checkout's chip_smoke.py, whichever package is on sys.path."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def digest(tensors) -> int:
+    return sum(int((t.long() * (i + 1)).sum()) for i, t in enumerate(tensors))
+
+
+def takes_codes(fn) -> bool:
+    return next(iter(inspect.signature(fn).parameters)) == "codes"
+
+
+def k1_calls(cs, dev):
+    from kaarme_tpu_torch.ops import cuda_skm, sortcount
+
+    k, n = cs.K, cs.N_WINDOWS
+    packed, sep, _ = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
+    if takes_codes(cuda_skm.run_rows_dense):
+        def fn():
+            codes = sortcount.codes_from_chunk(packed, sep, k=k, n=n, dense=False)
+            return cuda_skm.run_rows_dense(codes, k=k, n=n, cap=CAP)
+        return "codes_from_chunk + K1 (codes input)", {"k1": fn}
+    return "K1 (chunk input)", {
+        "k1": lambda: cuda_skm.run_rows_dense(packed, sep, k=k, n=n, cap=CAP, dense=False)}
+
+
+def k5_calls(cs, dev):
+    from kaarme_tpu_torch.ops import cuda_skm, sortcount
+
+    k, n = cs.K, cs.N_WINDOWS
+    packed, sep, _ = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
+    if takes_codes(cuda_skm.run_rows_slotted):
+        def fn():
+            codes = sortcount.codes_from_chunk(packed, sep, k=k, n=n, dense=False)
+            return cuda_skm.run_rows_slotted(codes, k=k, n=n, S=S_SLOTS)
+        return "codes_from_chunk + K5 (codes input)", {"k5": fn}
+    return "K5 (chunk input)", {
+        "k5": lambda: cuda_skm.run_rows_slotted(packed, sep, k=k, n=n, S=S_SLOTS, dense=False)}
+
+
+def k2_calls(cs, dev):
+    """K2 at chip_smoke's three timed shapes; the inputs come from the
+    plain versions, so both checkouts time the same rows."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_compact, cuda_skm, cuda_winkeys, skm, sortcount
+
+    k, n = cs.K, cs.N_WINDOWS
+    packed, sep, _ = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
+    cols, rows = cuda_skm.run_rows_dense_plain(packed, sep, k=k, n=n,
+                                               cap=sortcount.next_store_size(n // 8))
+    merge, n1 = cs.k2_merge_input(cols, int(rows[0]))
+    del cols, packed, sep
+    store = cuda_compact.segsum_compact_torch(merge, None, ebits=skm.EBITS)
+    fkeys, fcnt = cs.k2_finalize_input(store, n1)
+    del store
+    codes = cs.read_stream(dev, 4_600_000, 2 * n + 12, n_every=100_003)
+    first = cuda_winkeys.window_keys_torch(codes[:n + 12], 13, n)
+    nxt0 = cuda_winkeys.window_keys_torch(codes[n:], 13, n)[0]
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    s1 = sortcount.lexsort(list(first) + [ones], num_keys=1)
+    pk, pc, _ = cuda_compact.segsum_compact_torch(s1[:1], s1[1].contiguous(), out_len=CAP)
+    ckeys, ccnt = cs.k2_classic_input(pk, pc, nxt0)
+    del codes, first, s1, pk, pc, nxt0
+    torch.cuda.empty_cache()
+    return "K2", {
+        "merge_embedded": lambda: cuda_compact.segsum_compact(merge, None, ebits=skm.EBITS),
+        "finalize_full_sum": lambda: cuda_compact.segsum_compact(fkeys, fcnt),
+        "classic_k13_full_sum": lambda: cuda_compact.segsum_compact(ckeys, ccnt, out_len=CAP)}
+
+
+def worker(kernel: str, root: str, reps: int) -> dict:
+    sys.path.insert(0, root)
+    import torch
+    from kaarme_tpu_torch.ops import _build
+
+    cs = chip_smoke()
+    dev = torch.device("cuda", 0)
+    _build.lib()
+    api, calls = {"k1": k1_calls, "k2": k2_calls, "k5": k5_calls}[kernel](cs, dev)
+    out = dict(root=root, api=api, ms={}, digest={})
+    for name, fn in calls.items():
+        res = fn()
+        cols, tail = res[:-1], res[-1]
+        flat = [c for part in cols for c in (part if isinstance(part, (tuple, list)) else [part])]
+        out["digest"][name] = [digest(flat), tail.reshape(-1).tolist()]
+        del res, cols, flat
+        out["ms"][name] = cs.cuda_ms(fn, reps)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k5"), required=True)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.worker:
+        print(json.dumps(worker(a.kernel, a.other, a.reps)))
+        return 0
+    other = os.path.abspath(a.other)
+    print(chip_smoke().sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    out = []
+    for root in (other, HERE, HERE, other):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), root, "--kernel",
+                              a.kernel, "--reps", str(a.reps), "--worker"],
+                             capture_output=True, text=True, cwd=root)
+        if res.returncode:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        out.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps(out[-1]))
+    same = len({json.dumps(r["digest"], sort_keys=True) for r in out}) == 1
+    print(json.dumps({"kernel": a.kernel,
+                      "other_ms": [out[0]["ms"], out[3]["ms"]],
+                      "this_ms": [out[1]["ms"], out[2]["ms"]], "same_output": same}))
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
