@@ -19,14 +19,18 @@ Run from the repository root.  It builds the port's CUDA kernels from
    its edge cases: one key over more than 64 of its tiles in both modes
    (its full_sum mass crossing 2^20), W = 1 and W = 15, N = 0, and
    out_len < nd with a guard region past out_len left untouched;
-3. K3 (canonical window keys) at the classic path's shape (k=51 and
-   k=13, 2^26 windows) and at k=201 on a small and an odd tail length:
-   kernel == plain, bit for bit;
-4. K4 (linear merge + compaction) at the classic merge's shape: the
-   dense store after one 2^26-window superstep, padded to 2^23 rows,
-   merged with the next 2^26 sorted window keys, embedded (k=51) and
-   separate-count (k=13), plus an overflow case with a guard region;
-   and K2's full_sum mode at the classic k=13 superstep's shape;
+3. K3 (canonical window keys) from the transfer chunk (separator list
+   and bitmap) at the classic path's shape (k=51 and k=13, 2^26
+   windows) and at k=201 on a small and an odd tail length: kernel ==
+   plain (the unpack, then the plain window keys), bit for bit; its time
+   beside the plain version's and the unpack's alone;
+4. K4 (linear merge fused with the compaction) at the classic merge's
+   shape: the dense store after one 2^26-window superstep, padded to
+   2^23 rows, merged with the next 2^26 sorted window keys, embedded
+   (k=51) and separate-count (k=13), plus an overflow case with a guard
+   region; one key over more than 64 of its tiles whose total crosses
+   2^20 (W = 4, 1 and 13), with a guard past out_len < nd; and K2's
+   full_sum mode at the classic k=13 superstep's shape;
 5. K5 (slotted run segmentation) from K1's transfer chunk (separator
    list and bitmap) at the slotted skm path's shape (k=51, 2^26
    windows, S=96) and with S=16, where tiles overflow and the same rows
@@ -48,7 +52,9 @@ Run from the repository root.  It builds the port's CUDA kernels from
    Bloom prefilter ``-b -u 5000000 -a 2`` at k=51 on the skm route and
    the classic route with and without the merge (count files == the
    ``-a 1`` file without its count-1 lines); each with the launch
-   counters of its kernels > 0 and its peak device memory printed.
+   counters of its kernels > 0 (K3 exactly once per dispatched classic
+   superstep and Bloom pass-1 superstep, K4 once per merge superstep)
+   and its peak device memory printed.
 
 Each kernel phase also computes the kernel's bound at its shape: the
 least time the card could take, each input byte read once and each
@@ -270,6 +276,33 @@ def k2_classic_input(pk, pc, nxt0):
     return s[:1], s[1].contiguous()
 
 
+def k4_runs(first, nxt, k: int, compact, cap: int):
+    """K4's inputs at the classic merge superstep: the store after one
+    superstep (the window keys ``first`` sorted and compacted by
+    ``compact``, K2 or its plain version, dense in ``cap`` rows) and the
+    next superstep's window keys ``nxt``, sorted.  Returns (a, b,
+    embedded, ebits, (pk, pc, nd1)): the store's keys and counts as
+    ``compact`` gave them."""
+    import torch
+    from kaarme_tpu_torch.ops import sortcount
+
+    eb = sortcount.embed_bits(k)
+    emb = eb >= 21
+    W = len(first)
+    if emb:
+        s1 = sortcount.lexsort(list(first[:-1]) + [first[-1] | 1], num_keys=W)
+        pk, pc, nd1 = compact(s1, None, ebits=eb, out_len=cap)
+        a = torch.cat([pk[:-1], (pk[-1] | pc)[None]])
+        b = sortcount.lexsort(list(nxt[:-1]) + [nxt[-1] | 1], num_keys=W)
+    else:
+        ones = torch.ones(first[0].shape[0], dtype=torch.int32, device=first[0].device)
+        s1 = sortcount.lexsort(list(first) + [ones], num_keys=W)
+        pk, pc, nd1 = compact(s1[:W], s1[W].contiguous(), out_len=cap)
+        a = torch.cat([pk, pc[None]])
+        b = sortcount.lexsort(list(nxt), num_keys=W)
+    return a, b, emb, eb if emb else 0, (pk, pc, nd1)
+
+
 def phase_k2(dev, k1_out):
     import torch
     from kaarme_tpu_torch.ops import cuda_compact, skm
@@ -388,45 +421,132 @@ def k2_cases(dev) -> int:
 
 
 def phase_k3(dev):
-    """K3 at the classic path's shape (k=51 and k=13 over 2^26 windows,
-    and the next 2^26 windows for phase_k4) and at k=201 (small n and a
-    tail n that is no multiple of any block size)."""
+    """K3 from the transfer chunk at the classic path's shape (k=51 and
+    k=13 over 2^26 windows, in both chunk formats; and the next 2^26
+    windows for phase_k4) and at k=201 (small n and a tail n that is no
+    multiple of the tile), against its plain version (the unpack, then
+    the plain window keys), bit for bit; its time beside the plain
+    version's, the unpack's alone, and its bound on the chunk's bytes."""
     import torch
-    from kaarme_tpu_torch.ops import cuda_winkeys
+    from kaarme_tpu_torch.ops import cuda_winkeys, sortcount
 
     err, times, batches = 0, {}, {}
     for k in (51, 13):
         codes = read_stream(dev, 4_600_000, 2 * N_WINDOWS + k - 1, n_every=100_003)
-        first, nxt = codes[:N_WINDOWS + k - 1], codes[N_WINDOWS:]
-        got = cuda_winkeys.window_keys(first, k, N_WINDOWS)
-        want = cuda_winkeys.window_keys_torch(first, k, N_WINDOWS)
-        torch.cuda.synchronize()
-        e = max_abs_err(got, want)
-        if e:
-            raise AssertionError(f"K3 k={k} kernel != plain (max abs err {e})")
-        err = max(err, e)
-        del want
-        ms = cuda_ms(lambda: cuda_winkeys.window_keys(first, k, N_WINDOWS))
-        plain_ms = cuda_ms(lambda: cuda_winkeys.window_keys_torch(first, k, N_WINDOWS))
-        # per window and key word: build the forward and reverse-complement
-        # words (~4 operations each) and compare
-        b = bound([first], got, 10.0 * len(got) * N_WINDOWS)
-        times[k] = (ms, plain_ms, b)
-        batches[k] = (got, cuda_winkeys.window_keys(nxt, k, N_WINDOWS))
-        print(f"K3 window_keys k={k} n={N_WINDOWS}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-        del codes, first, nxt
+        packed, sep, mask = chunk_of(codes[:N_WINDOWS + k - 1])
+        got = None
+        for dense, s in ((False, sep), (True, mask)):
+            g = cuda_winkeys.window_keys(packed, s, k=k, n=N_WINDOWS, dense=dense)
+            want = cuda_winkeys.window_keys_plain(packed, s, k=k, n=N_WINDOWS, dense=dense)
+            torch.cuda.synchronize()
+            e = max_abs_err(g, want)
+            if e:
+                raise AssertionError(f"K3 k={k} dense={dense} kernel != plain (max abs err {e})")
+            err = max(err, e)
+            del want
+            got = got or g
+        run = lambda s, dense: cuda_winkeys.window_keys(packed, s, k=k, n=N_WINDOWS, dense=dense)
+        ms = cuda_ms(lambda: run(sep, False))
+        dense_ms = cuda_ms(lambda: run(mask, True))
+        plain_ms = cuda_ms(lambda: cuda_winkeys.window_keys_plain(packed, sep, k=k, n=N_WINDOWS))
+        unpack_ms = cuda_ms(lambda: sortcount.codes_from_chunk(packed, sep, k=k, n=N_WINDOWS,
+                                                               dense=False))
+        # the sparse chunk in, the W key columns out; per window and key
+        # word ~12 operations (two funnel shifts, the field reversal, the
+        # compare and select), plus the two bitmap ranks
+        b = bound([packed, sep], got, (12.0 * len(got) + 8.0) * N_WINDOWS)
+        times[k] = (ms, plain_ms, b, dense_ms, unpack_ms)
+        nxt = chunk_of(codes[N_WINDOWS:])
+        batches[k] = (got, cuda_winkeys.window_keys(nxt[0], nxt[1], k=k, n=N_WINDOWS))
+        print(f"K3 window_keys k={k} n={N_WINDOWS} from the chunk ({packed.numel()} packed "
+              f"words, {sep.numel()} separators / {mask.numel()} bitmap words): == plain in both "
+              f"formats; kernel {ms:.3f} ms sparse, {dense_ms:.3f} ms dense; codes_from_chunk + "
+              f"plain {plain_ms:.3f} ms (the unpack alone {unpack_ms:.3f} ms); bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bound_bytes']} bytes, "
+              f"{b['bound_ops']:.0f} operations)")
+        del codes, packed, sep, mask, nxt
     for n in (1 << 16, 100_003):
-        codes = read_stream(dev, 4_600_000, n + 200, n_every=9_973)
-        e = max_abs_err(cuda_winkeys.window_keys(codes, 201, n),
-                        cuda_winkeys.window_keys_torch(codes, 201, n))
-        if e:
-            raise AssertionError(f"K3 k=201 n={n} kernel != plain (max abs err {e})")
-        err = max(err, e)
-        print(f"K3 window_keys k=201 n={n}: kernel == plain")
-    ms, plain_ms, b = times[51]
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, k13_ms=times[13][0],
+        packed, sep, mask = chunk_of(read_stream(dev, 4_600_000, n + 200, n_every=9_973))
+        for dense, s in ((False, sep), (True, mask)):
+            e = max_abs_err(cuda_winkeys.window_keys(packed, s, k=201, n=n, dense=dense),
+                            cuda_winkeys.window_keys_plain(packed, s, k=201, n=n, dense=dense))
+            if e:
+                raise AssertionError(f"K3 k=201 n={n} dense={dense} kernel != plain (max abs "
+                                     f"err {e})")
+        print(f"K3 window_keys k=201 n={n}: kernel == plain in both formats")
+    ms, plain_ms, b, dense_ms, unpack_ms = times[51]
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms,
+                unpack_ms=unpack_ms, k13_ms=times[13][0], k13_dense_ms=times[13][3],
                 k13_plain_ms=times[13][1], k13_bound_ms=times[13][2]["bound_ms"], **b), batches
+
+
+def hot_runs(dev, W: int, embedded: bool, n_hot: int, seed: int):
+    """Sorted K4 runs with one hot key: one A row of count 2^20 - 7 and
+    n_hot B rows, among 300 other A keys and 900 other B rows, sentinel
+    rows after both runs.  Returns (a, b, ebits)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    eb = 26 if embedded else 0
+    low = 0xFFFFFFFF ^ ((1 << eb) - 1)
+
+    def keys(m):
+        x = rng.integers(0, 1 << 20, (m, W)).astype(np.int64)
+        x[:, 0] |= 0x80000000
+        x[:, -1] = (x[:, -1] << eb) & low
+        return x
+
+    key = keys(1)
+    a = np.unique(np.concatenate([keys(300), key]), axis=0)
+    acnt = rng.integers(1, 100, a.shape[0])
+    acnt[(a == key).all(1)] = (1 << 20) - 7
+    b = np.concatenate([keys(900), np.repeat(key, n_hot, 0)])
+    b = b[np.lexsort(b.T[::-1])]
+    if embedded:
+        a[:, -1] |= acnt
+        b[:, -1] |= 1
+    a = np.concatenate([a, np.full((33, W), 0xFFFFFFFF)])
+    b = np.concatenate([b, np.full((21, W), 0xFFFFFFFF)])
+    cols = [a[:, w] for w in range(W)]
+    if not embedded:
+        cols.append(np.concatenate([acnt, np.zeros(33, np.int64)]))
+    to = lambda c: torch.from_numpy(np.stack(c).astype(np.uint32).view(np.int32)).to(dev)
+    return to(cols), to([b[:, w] for w in range(W)]), eb
+
+
+def k4_hot_cases(dev):
+    """K4 against its plain version with one key over more than 64 tiles
+    at every tile size (66 x 4096 + 77 batch rows: its carry comes from the
+    look-back only), its total crossing the 2^20 clamp, at W = 4
+    embedded, W = 1 separate count and W = 13 embedded; then out_len < nd
+    into a buffer whose guard past out_len must stay untouched."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_merge
+
+    done = []
+    for W, emb in ((4, True), (1, False), (13, True)):
+        a, b, eb = hot_runs(dev, W, emb, 66 * 4096 + 77, seed=SEED + W)
+        want = cuda_merge.merge_compact_torch(a, b, embedded=emb, ebits=eb)
+        got = cuda_merge.merge_compact(a, b, embedded=emb, ebits=eb)
+        torch.cuda.synchronize()
+        nd = want[2].tolist()
+        e = max_abs_err(got, want)
+        top = int(want[1].max())
+        if e or got[2].tolist() != nd or not (1 << 20) < top < (1 << 21):
+            raise AssertionError(f"K4 hot key W={W} embedded={emb}: kernel != plain (max abs err "
+                                 f"{e}, nd {got[2].tolist()} vs {nd}, top count {top})")
+        small = nd[0] // 2
+        buf = torch.full((W + 1, small + 4096), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+        ok, oc, ond = cuda_merge.launch_merge(a, b, buf, small, embedded=emb, ebits=eb)
+        torch.cuda.synchronize()
+        if ond.tolist() != nd or not bool((buf[:, small:] == 0x5A5A5A5A).all()):
+            raise AssertionError(f"K4 hot key W={W}: out_len {small} < nd {nd}: wrote past out_len")
+        if max_abs_err([ok, oc], [want[0][:, :small], want[1][:small]]):
+            raise AssertionError(f"K4 hot key W={W}: overflow prefix != plain")
+        done.append(f"W={W} {'embedded' if emb else 'separate count'} nd={nd[0]} (hot total "
+                    f"{top}; out_len {small} < nd: guard intact)")
+    print(f"K4 hot key over {66 * 4096 + 77} batch rows == plain: {'; '.join(done)}")
 
 
 def phase_k4(dev, batches):
@@ -434,32 +554,18 @@ def phase_k4(dev, batches):
     K2's full_sum mode at the classic k=13 (separate-count) superstep's
     shape."""
     import torch
-    from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, sortcount
+    from kaarme_tpu_torch.ops import cuda_compact, cuda_merge
 
     cap = 1 << 23                     # -s 8000000
     out, err = {}, 0
     for k in (51, 13):
-        eb = sortcount.embed_bits(k)
-        emb = eb >= 21
         first, nxt = batches.pop(k)
         W = len(first)
         # the store after superstep 1 (sort + K2), dense in `cap` rows
-        if emb:
-            s1 = sortcount.lexsort(list(first[:-1]) + [first[-1] | 1], num_keys=W)
-            pk, pc, nd1 = cuda_compact.segsum_compact(s1, None, ebits=eb, out_len=cap)
-        else:
-            ones = torch.ones(N_WINDOWS, dtype=torch.int32, device=dev)
-            s1 = sortcount.lexsort(list(first) + [ones], num_keys=W)
-            pk, pc, nd1 = cuda_compact.segsum_compact(s1[:W], s1[W].contiguous(),
-                                                      out_len=cap)
-        del s1, first
-        a = torch.cat([pk[:-1], (pk[-1] | pc)[None]]) if emb else torch.cat([pk, pc[None]])
-        b = sortcount.lexsort(list(nxt[:-1]) + [nxt[-1] | 1] if emb else list(nxt),
-                              num_keys=W)
-        got = cuda_merge.merge_compact(a, b, embedded=emb, ebits=eb if emb else 0,
-                                       out_len=cap)
-        want = cuda_merge.merge_compact_torch(a, b, embedded=emb, ebits=eb if emb else 0,
-                                              out_len=cap)
+        a, b, emb, eb, (pk, pc, nd1) = k4_runs(first, nxt, k, cuda_compact.segsum_compact, cap)
+        del first
+        got = cuda_merge.merge_compact(a, b, embedded=emb, ebits=eb, out_len=cap)
+        want = cuda_merge.merge_compact_torch(a, b, embedded=emb, ebits=eb, out_len=cap)
         torch.cuda.synchronize()
         nd = want[2].tolist()
         e = max_abs_err(got, want)
@@ -467,10 +573,9 @@ def phase_k4(dev, batches):
             raise AssertionError(f"K4 k={k} kernel != plain (max abs err {e}, nd "
                                  f"{got[2].tolist()} vs {nd})")
         err = max(err, e)
-        ms = cuda_ms(lambda: cuda_merge.merge_compact(a, b, embedded=emb,
-                                                      ebits=eb if emb else 0, out_len=cap))
-        plain_ms = cuda_ms(lambda: cuda_merge.merge_compact_torch(
-            a, b, embedded=emb, ebits=eb if emb else 0, out_len=cap))
+        ms = cuda_ms(lambda: cuda_merge.merge_compact(a, b, embedded=emb, ebits=eb, out_len=cap))
+        plain_ms = cuda_ms(lambda: cuda_merge.merge_compact_torch(a, b, embedded=emb, ebits=eb,
+                                                                  out_len=cap))
         # per merged row: a merge-path comparison of W words, then K2's
         kb = bound([a, b], got, (2.0 * W + 4.0) * (a.shape[1] + b.shape[1]))
         out[k] = (ms, plain_ms, kb)
@@ -511,6 +616,7 @@ def phase_k4(dev, batches):
             del keys, c, fgot, fwant
         del a, b, got, want, pk, pc, nxt
         torch.cuda.empty_cache()
+    k4_hot_cases(dev)
     k4 = dict(max_abs_err=err, ms=out[51][0], plain_ms=out[51][1],
               k13_ms=out[13][0], k13_plain_ms=out[13][1], k13_bound_ms=out[13][2]["bound_ms"],
               **out[51][2])
@@ -723,6 +829,23 @@ def same_file(a: str, b: str, what: str):
     print(f"full size: byte-identical count files, {what}")
 
 
+def check_launches(counter, launches, label: str, route: str, bloom: bool = False):
+    """K3 and K4 launched once per dispatched superstep of their route
+    (replays included), K3 also once per Bloom pass-1 superstep."""
+    st = counter.stats
+    steps = st["batches"] + st["replayed_supersteps"]
+    pass1 = st.get("pass1_batches", 0) if bloom else 0
+    want = {"window_keys": pass1 + (0 if route == "skm" else steps),
+            "merge_compact": steps if route == "merge" else 0}
+    got = {name: launches[name] for name in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want} ({st['batches']} supersteps, "
+                             f"{st['replayed_supersteps']} replayed, {pass1} pass-1 supersteps)")
+    print(f"full size {label}: window_keys launched {got['window_keys']} times, merge_compact "
+          f"{got['merge_compact']} ({st['batches']} supersteps + {st['replayed_supersteps']} "
+          f"replayed" + (f", {pass1} pass-1 supersteps" if bloom else "") + ")")
+
+
 def phase_full(tmp):
     path = os.path.join(tmp, "ecoli30x.fa")
     t0 = time.perf_counter()
@@ -776,16 +899,19 @@ def phase_full(tmp):
                                          f"k={K} classic", ("window_keys", "segsum_compact"))
     if counter.n_distinct != distinct:
         raise AssertionError(f"classic k={K}: {counter.n_distinct} distinct != {distinct}")
+    check_launches(counter, classic_launches, f"k={K} classic", "classic")
     same_file(out("skm"), out("classic"), f"k={K} classic == skm ({distinct} distinct)")
-    _, merge_launches = run_full(classic + ["--compactor", "merge", "-o", out("merge")],
-                                 f"k={K} classic --compactor merge",
-                                 ("window_keys", "merge_compact"))
+    counter, merge_launches = run_full(classic + ["--compactor", "merge", "-o", out("merge")],
+                                       f"k={K} classic --compactor merge",
+                                       ("window_keys", "merge_compact"))
+    check_launches(counter, merge_launches, f"k={K} classic --compactor merge", "merge")
     same_file(out("skm"), out("merge"), f"k={K} classic --compactor merge == skm")
 
     # k=13: the classic route is the only one (separate-count layout)
     argv = [path, "13", "-s", "8000000", "-a", "1", "-q"]
-    counter, _ = run_full(argv + ["-o", out("k13")], "k=13 classic",
-                          ("window_keys", "segsum_compact"))
+    counter, launches = run_full(argv + ["-o", out("k13")], "k=13 classic",
+                                 ("window_keys", "segsum_compact"))
+    check_launches(counter, launches, "k=13 classic", "classic")
     _, cnt = counter.dump()
     if int(cnt.sum()) != n_reads * (150 - 13 + 1):
         raise AssertionError(f"k=13: sum of counts {int(cnt.sum())} != valid windows")
@@ -794,23 +920,28 @@ def phase_full(tmp):
     del counter, cnt
     run_full(argv + ["-o", out("k13_plain"), "--kernels", "plain"], "k=13 classic, plain")
     same_file(out("k13"), out("k13_plain"), "k=13 kernels == plain")
-    run_full(argv + ["--compactor", "merge", "-o", out("k13_merge")],
-             "k=13 classic --compactor merge", ("window_keys", "merge_compact"))
+    counter, launches = run_full(argv + ["--compactor", "merge", "-o", out("k13_merge")],
+                                 "k=13 classic --compactor merge",
+                                 ("window_keys", "merge_compact"))
+    check_launches(counter, launches, "k=13 classic --compactor merge", "merge")
+    del counter
     same_file(out("k13"), out("k13_merge"), "k=13 --compactor merge == sort + K2")
 
     # the two-pass Bloom prefilter: the -a 1 file without its count-1 lines
     with open(out("skm"), "rb") as f, open(out("ge2"), "wb") as g:
         g.writelines(ln for ln in f if not ln.endswith(b" 1\n"))
     bloom = [path, str(K), "-b", "-u", "5000000", "-a", "2", "-q"]
-    for name, extra, uses in (
-            ("bloom_skm", [], ("window_keys", "skm_dense", "segsum_compact")),
-            ("bloom_classic", ["--pipeline", "classic"], ("window_keys", "segsum_compact")),
-            ("bloom_merge", ["--pipeline", "classic", "--compactor", "merge"],
+    for name, route, extra, uses in (
+            ("bloom_skm", "skm", [], ("window_keys", "skm_dense", "segsum_compact")),
+            ("bloom_classic", "classic", ["--pipeline", "classic"],
+             ("window_keys", "segsum_compact")),
+            ("bloom_merge", "merge", ["--pipeline", "classic", "--compactor", "merge"],
              ("window_keys", "merge_compact"))):
-        counter, _ = run_full(bloom + extra + ["-o", out(name)],
-                              f"k={K} -b -u 5000000 -a 2 {' '.join(extra) or 'skm'}", uses)
+        label = f"k={K} -b -u 5000000 -a 2 {' '.join(extra) or 'skm'}"
+        counter, launches = run_full(bloom + extra + ["-o", out(name)], label, uses)
         if counter.bf1 is not None or not 0 < counter.stats["new_in_second"]:
             raise AssertionError(f"{name}: BF1 kept or no second occurrences")
+        check_launches(counter, launches, label, route, bloom=True)
         del counter
         same_file(out("ge2"), out(name), f"k={K} {name} -a 2 == -a 1 without count-1 lines")
     return {"skm_dense": skm_launches["skm_dense"],

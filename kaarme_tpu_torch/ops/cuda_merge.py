@@ -18,7 +18,10 @@ nd_used]) with K2's contract: one record per live key in key order, the
 summed count clamped, sentinel keys with count 0 after them; nd_used ==
 nd_exact, and nd > out_len means the capacity overflowed (nothing is
 written at or past ``out_len``).  Both runs ascend, so the TPU kernel's
-bitwise-NOT-ed descending batch is not carried over.
+bitwise-NOT-ed descending batch is not carried over.  The kernel merges
+each tile in shared memory and compacts it there: the merged rows never
+reach device memory, and a call allocates only the output, the verdict
+and a few words of scratch per tile.
 """
 
 from __future__ import annotations
@@ -27,16 +30,6 @@ import torch
 
 from . import _build, cuda_compact
 from .sortcount import lexsort
-
-_SMEM_MAX = 48 * 1024   # merge_compact.cu stages tile * W * 4 bytes per block
-
-
-def _tile_rows(W: int) -> int:
-    """Rows per merge tile: 1024, halved until W words of it fit."""
-    tile = 1024
-    while tile > 1 and tile * W * 4 > _SMEM_MAX:
-        tile //= 2
-    return tile
 
 
 def _check_inputs(a, b, embedded, ebits, out_len):
@@ -88,20 +81,15 @@ def launch_merge(a, b, out: torch.Tensor, out_len: int, *, embedded: bool, ebits
     b = b if b.stride(1) == 1 else b.contiguous()
     dev = a.device
     na, nb = a.shape[1], b.shape[1]
-    n = na + nb
-    tile = _tile_rows(W)
     with torch.cuda.device(dev):
-        merged = torch.empty((W + 1, n), dtype=torch.int32, device=dev)
-        split = torch.empty(-(-n // tile) + 1, dtype=torch.int64, device=dev)
         lib = _build.lib()
-        k2_scratch = torch.empty(lib.kt_segsum_compact_scratch(n), dtype=torch.int64,
-                                 device=dev)
+        scratch = torch.empty(lib.kt_merge_compact_scratch(na, nb, W), dtype=torch.int64,
+                              device=dev)
         nd = torch.empty(2, dtype=torch.int32, device=dev)
         err = lib.kt_merge_compact(
             a.data_ptr(), a.stride(0), na, None if embedded else a[W].data_ptr(),
-            b.data_ptr(), b.stride(0), nb, W, ebits if embedded else 0, tile,
-            merged.data_ptr(), split.data_ptr(), k2_scratch.data_ptr(),
-            out.data_ptr(), out.stride(0), out_len, nd.data_ptr(),
+            b.data_ptr(), b.stride(0), nb, W, ebits if embedded else 0,
+            out.data_ptr(), out.stride(0), out_len, scratch.data_ptr(), nd.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_merge_compact")
     merge_compact.launches += 1

@@ -3,16 +3,28 @@
 
 ``window_keys`` launches the hand-written kernel (``csrc/winkeys.cu``)
 on CUDA tensors and runs the plain PyTorch version,
-``window_keys_torch``, on CPU tensors.
+``window_keys_plain``, on CPU tensors.  The kernel reads the transfer
+chunk; its plain version unpacks it (``sortcount.codes_from_chunk``) and
+calls the definition from codes, ``window_keys_torch``.
 
-Contract (both): codes int32 [L >= n + k - 1] (bits 0-1 the base, any
-higher bit marks the position invalid, as ``sortcount.unpack_codes``
-makes them) -> W = ceil(k / 16) int32 columns of n rows holding u32 bit
+Chunk contract (``window_keys`` and ``window_keys_plain``): the transfer
+chunk of an n-window superstep — ``packed`` int32 [>= ceil(L / 16)]
+2-bit bases (base i at bits 2*(i%16) of word i/16) and ``sep``, the
+invalid positions as int32 indices (the separator list; entries outside
+[0, L) are dropped) or, with ``dense``, as an int32 [>= ceil(L / 32)]
+bitmap (bit i%32 of word i/32), L = n + k - 1; positions at or past L
+are invalid.
+
+Codes contract (``window_keys_torch``): codes int32 [L >= n + k - 1]
+(bits 0-1 the base, any higher bit marks the position invalid, as
+``sortcount.unpack_codes`` makes them).
+
+Both give W = ceil(k / 16) int32 columns of n rows holding u32 bit
 patterns: the big-endian 2-bit canonical key of every window (the
 lexicographic min of the forward and reverse-complement words, ties to
 forward; the trailing word left-aligned with zero low bits), all-ones in
 every word where any of the window's k positions is invalid.  Any n >= 0
-and k >= 2; nothing past position n + k - 1 is read.
+and k >= 2.
 """
 
 from __future__ import annotations
@@ -20,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.codec import words_per_kmer
-from . import _build
+from . import _build, sortcount
 from .sortcount import M32, i32
 
 
@@ -33,19 +45,40 @@ def _check_inputs(codes, k, n):
         raise ValueError(f"codes must hold n + k - 1 = {n + k - 1} positions")
 
 
-def window_keys(codes: torch.Tensor, k: int, n: int) -> tuple:
-    """Canonical window keys of an n-window stream (module docstring)."""
-    _check_inputs(codes, k, n)
-    if codes.device.type == "cpu":
-        return window_keys_torch(codes, k, n)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
-    codes = codes.contiguous()
-    dev = codes.device
+def _check_chunk(packed, sep, k, n, dense):
+    if k < 2:
+        raise ValueError("k must be >= 2")
+    for name, t in (("packed", packed), ("sep", sep)):
+        if t.dim() != 1 or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be a 1-D int32 tensor")
+    if packed.device != sep.device:
+        raise ValueError("packed and sep must be on one device")
+    L = n + k - 1
+    if n < 0 or packed.shape[0] * 16 < L:
+        raise ValueError(f"packed must hold n + k - 1 = {L} bases")
+    if dense and sep.shape[0] * 32 < L:
+        raise ValueError(f"the dense bitmap must cover n + k - 1 = {L} positions")
+
+
+def window_keys(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int,
+                dense: bool = False) -> tuple:
+    """Canonical window keys of an n-window superstep straight from its
+    transfer chunk (see the module docstring)."""
+    _check_chunk(packed, sep, k, n, dense)
+    if packed.device.type == "cpu":
+        return window_keys_plain(packed, sep, k=k, n=n, dense=dense)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    packed, sep = packed.contiguous(), sep.contiguous()
+    dev = packed.device
     with torch.cuda.device(dev):
+        lib = _build.lib()
         out = torch.empty((words_per_kmer(k), n), dtype=torch.int32, device=dev)
-        err = _build.lib().kt_window_keys(
-            codes.data_ptr(), codes.shape[0], n, k, out.data_ptr(), out.stride(0),
+        scratch = torch.empty(lib.kt_window_keys_scratch(n + k - 1, int(dense)),
+                              dtype=torch.int64, device=dev)
+        err = lib.kt_window_keys(
+            packed.data_ptr(), packed.shape[0], sep.data_ptr(), sep.shape[0], int(dense), n, k,
+            out.data_ptr(), out.stride(0), scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_window_keys")
     window_keys.launches += 1
@@ -55,8 +88,17 @@ def window_keys(codes: torch.Tensor, k: int, n: int) -> tuple:
 window_keys.launches = 0
 
 
+def window_keys_plain(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int,
+                      dense: bool = False) -> tuple:
+    """Plain PyTorch version of ``window_keys``: the function's
+    definition, ``codes_from_chunk`` then ``window_keys_torch``."""
+    _check_chunk(packed, sep, k, n, dense)
+    return window_keys_torch(sortcount.codes_from_chunk(packed, sep, k=k, n=n, dense=dense),
+                             k, n)
+
+
 def window_keys_torch(codes: torch.Tensor, k: int, n: int) -> tuple:
-    """Plain PyTorch version of ``window_keys``: the reference's
+    """``window_keys``' definition, from codes: the reference's
     ``sortcount.window_keys_from_codes`` plus its sentinel mask."""
     _check_inputs(codes, k, n)
     dev = codes.device

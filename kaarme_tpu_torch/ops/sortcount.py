@@ -202,17 +202,21 @@ def _check_kernels(kernels: str):
 def window_keys_from_chunk(packed, sep, *, k: int, n: int, dense: bool = False,
                            kernels: str = "cuda", bloom=None, hfn: int = 0) -> tuple:
     """Transfer chunk -> the n canonical window keys, unsorted (W int32
-    columns; invalid windows are all-ones) — unpack, then K3.  With a
-    Bloom filter ``bloom`` (int32 words, ``hfn`` bits per key), keys
-    that miss it become all-ones too, so they drop out of the merge as
-    invalid windows do.  The counterpart of ``sortcount._keys_from_chunk``
-    plus the supersteps' ``_bloom_miss_mask`` gate."""
+    columns; invalid windows are all-ones): K3 straight from the chunk
+    (``kernels="cuda"``), or the unpack then the plain K3 (``"plain"``).
+    With a Bloom filter ``bloom`` (int32 words, ``hfn`` bits per key),
+    keys that miss it become all-ones too, so they drop out of the merge
+    as invalid windows do.  The counterpart of
+    ``sortcount._keys_from_chunk`` plus the supersteps'
+    ``_bloom_miss_mask`` gate."""
     from . import cuda_winkeys
 
     _check_kernels(kernels)
-    codes = codes_from_chunk(packed, sep, k=k, n=n, dense=dense)
-    fn = cuda_winkeys.window_keys if kernels == "cuda" else cuda_winkeys.window_keys_torch
-    keys = fn(codes, k, n)
+    if kernels == "cuda":
+        keys = cuda_winkeys.window_keys(packed, sep, k=k, n=n, dense=dense)
+    else:
+        keys = cuda_winkeys.window_keys_torch(
+            codes_from_chunk(packed, sep, k=k, n=n, dense=dense), k, n)
     if bloom is not None:
         miss = _bloom_miss_mask(bloom, keys, hfn)
         keys = tuple(x | miss for x in keys)
@@ -303,7 +307,7 @@ def _bloom_miss_mask(bf2, keys, hfn: int) -> torch.Tensor:
 
 def bloom_pass1_superstep(bf1, bf2, packed, sep, *, k: int, n: int, dense: bool = False,
                           hfn: int = 4, kernels: str = "cuda"):
-    """Pass-1 superstep: unpack -> window keys (K3) -> BF1/BF2 insertion
+    """Pass-1 superstep: window keys from the chunk (K3) -> BF1/BF2 insertion
     of every valid window's root hash.  Returns (bf1, bf2,
     new_in_first, new_in_second), the counters as int64 tensors."""
     from .bloom import insert_batch

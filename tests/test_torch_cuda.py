@@ -233,21 +233,67 @@ def test_k2_kernel_equals_plain(dev, W, N, embedded):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,n", [(2, 100), (13, 1 << 16), (16, 4097), (31, 1023),
-                                 (51, 1 << 20), (201, 3001), (49_200, 37)])
-def test_k3_kernel_equals_plain(dev, k, n):
-    """k=49,200 stages more than 48 KB and reads the codes from global
-    memory; its plain version runs on the CPU (tens of thousands of
-    tiny ops)."""
-    codes = torch.from_numpy(_codes(n, k, seed=k + n))
-    codes[7::61] = 4
-    codes[50:52] = 9                 # a high bit beyond bit 2 also marks invalid
-    got = cuda_winkeys.window_keys(codes.to(dev), k, n)
-    want = cuda_winkeys.window_keys_torch(codes if k > 1000 else codes.to(dev), k, n)
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+@pytest.mark.parametrize("k,n", [(2, 100), (13, 1 << 16), (16, 4097), (17, 2049), (31, 1023),
+                                 (51, 1 << 20), (51, 100_003), (201, 3001), (49_200, 37)])
+def test_k3_kernel_equals_plain(dev, k, n, dense):
+    """From the chunk, in both formats (the separator list with entries
+    past L and one negative); n = 4097, 2049, 100,003 end in a partial
+    tile of 2048 windows.  k=49,200 stages ~25 KB of chunk per tile; its
+    plain version runs on the CPU (tens of thousands of tiny ops)."""
+    packed, sep, mask = _chunk(n, k, seed=k + n)
+    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
+    got = cuda_winkeys.window_keys(p, s, k=k, n=n, dense=dense)
+    where = (lambda t: t.cpu()) if k > 1000 else (lambda t: t)
+    want = cuda_winkeys.window_keys_plain(where(p), where(s), k=k, n=n, dense=dense)
     torch.cuda.synchronize()
     assert len(got) == len(want) == -(-k // 16)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+@pytest.mark.parametrize("route", ["embedded", "plain", "merged_k51", "merged_k13", "bloom_pass1"])
+def test_classic_superstep_does_not_unpack(dev, monkeypatch, route, dense):
+    """The classic supersteps and -b pass 1 on the kernel route never
+    reach the unpack: ``codes_from_chunk`` (and the unpack helpers)
+    raise, and the result equals the plain route's, which unpacks."""
+    from kaarme_tpu_torch.ops import bloom
+
+    k = 13 if route in ("plain", "merged_k13") else 51
+    n = 100_000
+    packed, sep, mask = _chunk(n, k, seed=len(route))
+    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
+    W = -(-k // 16)
+    eb = sortcount.embed_bits(k)
+
+    def step(kernels):
+        prefix = sortcount.make_store(1 << 17, W, dev)
+        kw = dict(k=k, n=n, dense=dense, kernels=kernels)
+        if route == "embedded":
+            return sortcount.superstep_embedded(p, s, prefix, ebits=eb, **kw)
+        if route == "plain":
+            return sortcount.superstep_plain(p, s, prefix, **kw)
+        if route.startswith("merged"):
+            return sortcount.superstep_merged(p, s, prefix, ebits=eb, **kw)
+        bf1, bf2 = bloom.make_bloom(1 << 20, dev), bloom.make_bloom(1 << 20, dev)
+        return sortcount.bloom_pass1_superstep(bf1, bf2, p, s, hfn=4, **kw)
+
+    want = step("plain")
+
+    def boom(*a, **kw):
+        raise AssertionError("the kernel route unpacked the chunk")
+
+    for name in ("codes_from_chunk", "unpack_codes", "unpack_codes_sparse"):
+        monkeypatch.setattr(sortcount, name, boom)
+    cuda_winkeys.window_keys.launches = 0
+    got = step("cuda")
+    torch.cuda.synchronize()
+    assert cuda_winkeys.window_keys.launches == 1
+    flat = lambda r: [t for part in r for t in (part if isinstance(part, tuple) else (part,))]
+    for a, b in zip(flat(got), flat(want)):
+        assert torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
 
 
 def _k2_equal(keys, cnt, eb, out_len, guard=0):
@@ -352,7 +398,9 @@ def _runs(dev, W, na, nb, embedded, seed, pad_a=0, pad_b=0, span=40):
 @pytest.mark.parametrize("W,na,nb,embedded", [
     (4, 3000, 70_000, True), (1, 500, 9000, False), (2, 6000, 6000, False),
     (13, 900, 5000, True), (20, 700, 3000, False), (3, 0, 4000, True),
-    (3, 2000, 0, False), (2, 0, 0, True)])
+    (3, 2000, 0, False), (2, 0, 0, True), (1, 0, 30_000, False), (4, 0, 9000, True),
+    (13, 0, 4000, False), (1, 20_000, 0, True), (4, 3000, 0, False), (13, 1500, 0, True),
+    (1, 0, 0, False), (13, 0, 0, True), (70, 300, 2000, True)])
 def test_k4_kernel_equals_plain(dev, W, na, nb, embedded):
     a, b, eb = _runs(dev, W, na, nb, embedded, seed=W + na + nb, pad_a=300, pad_b=77)
     n = a.shape[1] + b.shape[1]
@@ -384,6 +432,86 @@ def test_k4_exact_fit_and_overflow_guard(dev, embedded):
     assert ndv.tolist() == [nd, nd]
     assert bool((out[:, small:] == 0x5A5A5A5A).all())
     assert torch.equal(keys, want[0][:, :small]) and torch.equal(cnt, want[1][:small])
+
+
+def _hot_runs(dev, W, embedded, n_hot, seed):
+    """A key with one A row (count 2^20 - 7) and n_hot B rows, among 300
+    other A keys and 900 other B rows, sentinels after both runs."""
+    rng = np.random.default_rng(seed)
+    eb = 26 if embedded else 0
+    low = ((1 << 32) - 1) ^ ((1 << eb) - 1)
+
+    def keys(m):
+        x = rng.integers(0, 1 << 20, (m, W)).astype(np.int64)
+        x[:, 0] |= 0x80000000
+        x[:, -1] = (x[:, -1] << eb) & low
+        return x
+
+    key = keys(1)
+    a = np.unique(np.concatenate([keys(300), key]), axis=0)
+    acnt = rng.integers(1, 100, a.shape[0])
+    acnt[(a == key).all(1)] = (1 << 20) - 7
+    b = np.concatenate([keys(900), np.repeat(key, n_hot, 0)])
+    b = b[np.lexsort(b.T[::-1])]
+    if embedded:
+        a[:, -1] |= acnt
+        b[:, -1] |= 1
+    a = np.concatenate([a, np.full((33, W), 0xFFFFFFFF)])
+    b = np.concatenate([b, np.full((21, W), 0xFFFFFFFF)])
+    ta = [a[:, w] for w in range(W)]
+    if not embedded:
+        ta.append(np.concatenate([acnt, np.zeros(33, np.int64)]))
+    to = lambda cols: torch.from_numpy(
+        np.stack(cols).astype(np.uint32).view(np.int32)).to(dev)
+    return to(ta), to([b[:, w] for w in range(W)]), eb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embedded", [True, False], ids=["embedded", "separate"])
+@pytest.mark.parametrize("W", [1, 4, 13])
+def test_k4_hot_key_across_tiles_equals_plain(dev, W, embedded):
+    """One key over more than 64 of the kernel's tiles at every W (its
+    carry comes from the look-back only, over more than two rounds of 32
+    tiles), its total crossing the 2^20 clamp; then out_len < nd into a
+    buffer whose guard past out_len must stay untouched."""
+    a, b, eb = _hot_runs(dev, W, embedded, 66 * 4096 + 77, seed=W)
+    want = cuda_merge.merge_compact_torch(a, b, embedded=embedded, ebits=eb)
+    got = cuda_merge.merge_compact(a, b, embedded=embedded, ebits=eb)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    nd = int(want[2][0])
+    assert int(want[1].max()) > 1 << 20 and nd > 30
+    small = nd // 2
+    out = torch.full((W + 1, small + 333), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    keys, cnt, ndv = cuda_merge.launch_merge(a, b, out, small, embedded=embedded, ebits=eb)
+    torch.cuda.synchronize()
+    assert ndv.tolist() == [nd, nd]
+    assert bool((out[:, small:] == 0x5A5A5A5A).all())
+    assert torch.equal(keys, want[0][:, :small]) and torch.equal(cnt, want[1][:small])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embedded", [True, False], ids=["embedded", "separate"])
+def test_k4_allocates_no_merged_rows(dev, embedded):
+    """One launch allocates its scratch and verdict only: the peak over
+    the call stays far below a (W+1, na+nb) buffer of merged rows."""
+    from kaarme_tpu_torch.ops import _build
+
+    W = 4
+    a, b, eb = _runs(dev, W, 200_000, 2_000_000, embedded, seed=5, pad_a=1000, pad_b=100,
+                     span=1 << 20)
+    na, nb = a.shape[1], b.shape[1]
+    out = torch.empty((W + 1, na + nb), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_merge.launch_merge(a, b, out, na + nb, embedded=embedded, ebits=eb)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    scratch = 8 * _build.lib().kt_merge_compact_scratch(na, nb, W)
+    assert extra <= scratch + 2 * 512 + 4096
+    assert extra < (W + 1) * (na + nb) * 4 // 50
 
 
 @pytest.mark.cuda

@@ -111,6 +111,40 @@ def test_merge_hot_key_across_blocks_clamps():
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("eb", [26, 0], ids=["embedded", "separate"])
+def test_merge_hot_key_in_both_runs(eb):
+    """One key with a row in A (its count near 2^20) and 7,000 rows in B,
+    among other keys in both runs: its segment spans many of the
+    reference's 1024-row blocks and the merge boundary, and its total
+    crosses the clamp.  Both layouts."""
+    W, nb_hot = 3, 7000
+    rng = np.random.default_rng(11 + eb)
+    hot = _key_cols(np.array([[0x80000400, 7, 9]], np.int64), W, eb)
+    raw = rng.integers(0, 1 << 11, (200, W))
+    raw[:, 0] |= 0x80000000
+    a = np.unique(np.concatenate([_key_cols(raw, W, eb), hot]), axis=0)
+    acnt = rng.integers(1, 50, a.shape[0])
+    acnt[(a == hot).all(1)] = BIG - 11
+    braw = rng.integers(0, 1 << 11, (700, W))
+    braw[:, 0] |= 0x80000000
+    b = np.concatenate([_key_cols(braw, W, eb), np.repeat(hot, nb_hot, 0)])
+    b = b[np.lexsort(b.T[::-1])]
+    if eb:
+        a[:, -1] |= acnt
+        b[:, -1] |= 1
+    a = np.concatenate([a, np.full((1024 - a.shape[0], W), SENT)])
+    b = np.concatenate([b, np.full((8192 - b.shape[0], W), SENT)])
+    a_cols = [a[:, w].astype(np.uint32) for w in range(W)]
+    if not eb:
+        a_cols.append(np.concatenate([acnt, np.zeros(1024 - acnt.shape[0], np.int64)])
+                      .astype(np.uint32))
+    got, nd, ref, rnd = _both(a_cols, [b[:, w].astype(np.uint32) for w in range(W)], eb)
+    assert nd == rnd
+    row = np.flatnonzero((got[:, :W] == hot[0]).all(1))
+    assert row.shape == (1,) and int(got[row[0], W]) == _clamp(BIG - 11 + nb_hot) > BIG
+    np.testing.assert_array_equal(got, ref)
+
+
 def test_empty_prefix_and_overflow_cut():
     """The first superstep's all-sentinel prefix; a capacity below nd
     keeps the first out_len records and reports nd."""

@@ -1,10 +1,14 @@
 """K3 (canonical window keys) of the PyTorch port, held exactly to the
-JAX package: the plain version (what the CPU runs) against
+JAX package: the definition from codes (``window_keys_torch``) against
 ``window_keys_pallas`` (the Pallas kernel in interpret mode) and against
-the XLA formulation ``sortcount.window_keys_from_codes``.  Tolerance 0:
-every key word is an integer.  The CUDA kernel itself is compared with
-the plain version on the card by tests/test_torch_cuda.py and
-chip_smoke.py."""
+the XLA formulation ``sortcount.window_keys_from_codes``; the chunk
+entry point (``window_keys`` on CPU tensors: its plain version, the
+unpack then the definition) against the JAX package's
+``_keys_from_chunk`` in both its unpack-then-kernel route
+(``winkeys="legacy"``, Pallas in interpret mode) and its packed route
+(``winkeys="packed"``, ``window_keys_packed``).  Tolerance 0: every key
+word is an integer.  The CUDA kernel itself is compared with the plain
+version on the card by tests/test_torch_cuda.py and chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -13,9 +17,11 @@ import jax.numpy as jnp
 
 from kaarme_tpu.ops import sortcount as ref_sc
 from kaarme_tpu.ops.pallas_winkeys import window_keys_pallas
+from kaarme_tpu_torch.io import fastio
 from kaarme_tpu_torch.ops import cuda_winkeys
 
 N = 1 << 13
+M32 = 0xFFFFFFFF
 
 
 def _codes(L, seed, sep_every=61):
@@ -28,7 +34,30 @@ def _codes(L, seed, sep_every=61):
 
 def _port(codes, k, n):
     return [c.numpy().view(np.uint32)
-            for c in cuda_winkeys.window_keys(torch.from_numpy(codes.view(np.int32)), k, n)]
+            for c in cuda_winkeys.window_keys_torch(torch.from_numpy(codes.view(np.int32)), k, n)]
+
+
+def _chunk(n, k, seed):
+    """The transfer chunk as the host ships it (``fastio.pack_stream_np``):
+    random bases under the invalid positions too (the bitmap or the list
+    decides), the separator list with entries past L and one negative as
+    int32, and the dense bitmap.  Returns uint32 arrays."""
+    rng = np.random.default_rng(seed)
+    L = n + k - 1
+    bases = rng.integers(0, 4, L).astype(np.uint8)
+    inv = np.zeros(L, bool)
+    inv[::61 if k < 61 else 1021] = True
+    inv[1000:1003] = True
+    packed, _ = fastio.pack_stream_np(bases)
+    _, mask = fastio.pack_stream_np(inv.astype(np.uint8) * 4)
+    sep = np.concatenate([np.flatnonzero(inv), [L, L + 9, 0xFFFFFFF0]]).astype(np.uint32)
+    return packed, sep, mask
+
+
+def _from_chunk(packed, s, k, n, dense):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+    return [c.numpy().view(np.uint32)
+            for c in cuda_winkeys.window_keys(t(packed), t(s), k=k, n=n, dense=dense)]
 
 
 @pytest.mark.parametrize("k", [13, 16, 51, 201])
@@ -48,6 +77,88 @@ def test_window_keys_match_pallas_and_xla(k):
     assert 0 < sent.sum() < N
     if k % 16:                           # left-aligned trailing word, low bits zero
         assert (got[-1][~sent] & ((1 << (2 * (16 - k % 16))) - 1) == 0).all()
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+@pytest.mark.parametrize("k", [2, 13, 16, 17, 51, 201])
+def test_window_keys_from_chunk_match_jax_chunk_routes(k, dense):
+    """The chunk entry point on CPU tensors against the JAX package's
+    chunk routes: unpack + Pallas (interpret) and the packed formulation.
+    L = 2047 + k is a multiple of 16 only at k = 17 and of 32 never."""
+    n = 2048
+    packed, sep, mask = _chunk(n, k, seed=k + 100 * dense)
+    s = mask if dense else sep
+    got = _from_chunk(packed, s, k, n, dense)
+    assert len(got) == -(-k // 16)
+    pj, sj = jnp.asarray(packed), jnp.asarray(s)
+    legacy = ref_sc._keys_from_chunk(pj, sj, dense, k, n, 1, "interpret", "legacy")
+    packed_route = ref_sc._keys_from_chunk(pj, sj, dense, k, n, 1, "off", "packed")
+    for g, x, p in zip(got, legacy, packed_route):
+        np.testing.assert_array_equal(g, np.asarray(x))
+        np.testing.assert_array_equal(g, np.asarray(p))
+    sent = np.logical_and.reduce([g == M32 for g in got])
+    assert 0 < sent.sum() < n
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+@pytest.mark.parametrize("k,n", [(13, 5003), (51, 777), (2, 1)])
+def test_window_keys_from_chunk_odd_tails(k, n, dense):
+    """Tail supersteps from the chunk: n no multiple of 16, so the JAX
+    package's chunk route unpacks and takes its XLA formulation."""
+    packed, sep, mask = _chunk(n, k, seed=n + dense)
+    s = mask if dense else sep
+    got = _from_chunk(packed, s, k, n, dense)
+    want = ref_sc._keys_from_chunk(jnp.asarray(packed), jnp.asarray(s), dense, k, n, 1,
+                                   "interpret", "legacy")
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(x))
+
+
+def _funnel(packed, p):
+    """Little-endian 16-base word at positions p .. p+15 of the packed
+    stream (uint64 arrays; positions before 0 or past the words read 0)."""
+    z = np.zeros(1, np.uint64)
+    pk = np.concatenate([z, packed.astype(np.uint64), z, z])    # pk[i + 1] = packed[i]
+    q, r = p // 16 + 1, p % 16
+    pair = pk[q] | (pk[q + 1] << np.uint64(32))
+    return (pair >> (np.uint64(2) * r.astype(np.uint64))) & np.uint64(M32)
+
+
+def _pairrev(x):
+    out = np.zeros_like(x)
+    for j in range(16):
+        out |= ((x >> np.uint64(2 * j)) & np.uint64(3)) << np.uint64(2 * (15 - j))
+    return out
+
+
+@pytest.mark.parametrize("k", [2, 13, 16, 17, 33, 51, 201])
+def test_packed_word_identities(k):
+    """The kernel's formulation, word by word, against the words built
+    base by base from the bases: forward word w is the 2-bit-field
+    reversal of the little-endian word at t + 16w; reverse-complement word
+    w is the bitwise NOT of the little-endian word at t + k - 16(w+1)
+    (before position 0 for the trailing word of the first windows, read
+    as zeros).  Both masked to the trailing word's kept bits."""
+    n = 700
+    rng = np.random.default_rng(k)
+    bases = rng.integers(0, 4, n + k - 1).astype(np.uint8)
+    packed, _ = fastio.pack_stream_np(bases)
+    b = bases.astype(np.uint64)
+    t = np.arange(n)
+    W, r = -(-k // 16), k % 16
+    tmask = np.uint64(M32 if r == 0 else (M32 << (32 - 2 * r)) & M32)
+    for w in range(W):
+        m = tmask if w == W - 1 else np.uint64(M32)
+        fwd = _pairrev(_funnel(packed, t + 16 * w)) & m
+        rc = ~_funnel(packed, t + k - 16 * (w + 1)) & np.uint64(M32) & m
+        want_f = np.zeros(n, np.uint64)
+        want_r = np.zeros(n, np.uint64)
+        for j in range(min(16, k - 16 * w)):
+            sh = np.uint64(2 * (15 - j))
+            want_f |= b[t + 16 * w + j] << sh
+            want_r |= (np.uint64(3) - b[t + k - 1 - 16 * w - j]) << sh
+        np.testing.assert_array_equal(fwd, want_f)
+        np.testing.assert_array_equal(rc, want_r)
 
 
 @pytest.mark.parametrize("k,n", [(13, 5003), (201, 777), (2, 1)])
@@ -78,14 +189,25 @@ def test_canonical_orientation_and_sentinels():
     want = [int("".join(f"{int(c):02b}" for c in pal[16 * w: 16 * w + 16]), 2)
             for w in range(2)]
     assert pk.tolist() == want
+    # the same from the chunk
+    packed, mask = fastio.pack_stream_np(stream.astype(np.uint8))
+    assert (np.stack(_from_chunk(packed, mask, k, n, True), 1) == keys).all()
 
 
 def test_argument_checks():
     codes = torch.zeros(10, dtype=torch.int32)
     with pytest.raises(ValueError):
-        cuda_winkeys.window_keys(codes, 5, 7)          # needs 11 codes
+        cuda_winkeys.window_keys_torch(codes, 5, 7)    # needs 11 codes
     with pytest.raises(ValueError):
-        cuda_winkeys.window_keys(codes, 1, 5)
+        cuda_winkeys.window_keys_torch(codes, 1, 5)
     with pytest.raises(ValueError):
-        cuda_winkeys.window_keys(codes.long(), 5, 6)
-    assert [c.shape for c in cuda_winkeys.window_keys(codes, 5, 0)] == [(0,)]
+        cuda_winkeys.window_keys_torch(codes.long(), 5, 6)
+    assert [c.shape for c in cuda_winkeys.window_keys_torch(codes, 5, 0)] == [(0,)]
+    packed, sep = torch.zeros(2, dtype=torch.int32), torch.zeros(0, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cuda_winkeys.window_keys(packed, sep, k=5, n=29)          # 33 bases > 32
+    with pytest.raises(ValueError):
+        cuda_winkeys.window_keys(packed, sep, k=5, n=20, dense=True)   # no bitmap words
+    with pytest.raises(ValueError):
+        cuda_winkeys.window_keys(packed.long(), sep, k=5, n=20)
+    assert [c.shape for c in cuda_winkeys.window_keys(packed, sep, k=5, n=0)] == [(0,)]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one card, in turns, on chip_smoke's inputs.
 
-    python3 time_kernels.py --kernel k1|k2|k5 OTHER_ROOT [--reps 5]
+    python3 time_kernels.py --kernel k1|k2|k3|k4|k5 OTHER_ROOT [--reps 5]
 
 Run from the repository root.  Times a kernel of this checkout and of the
 checkout at OTHER_ROOT (for example the parent commit, unpacked with
@@ -15,11 +15,17 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
   run-store merge (embedded, 6 columns), the finalize (full_sum, 4 + 1)
   and the classic k=13 superstep (full_sum, 1 + 1), whose inputs come
   from the plain versions;
+- k3: ``cuda_winkeys.window_keys`` at k=51 and k=13 (the classic
+  path's superstep);
+- k4: ``cuda_merge.merge_compact`` at chip_smoke's two shapes: the store
+  after one superstep (2^23 rows) merged with the next superstep's sorted
+  window keys, k=51 embedded and k=13 separate count, whose inputs come
+  from the plain versions;
 - k5: ``cuda_skm.run_rows_slotted`` at S=96.
 
-Where a checkout's K1 or K5 takes codes (before its chunk-input kernel),
-the timed call is ``sortcount.codes_from_chunk`` followed by it, as its
-main path ran them.  Each checkout runs in its own process (the packages
+Where a checkout's K1, K3 or K5 takes codes (before its chunk-input
+kernel), the timed call is ``sortcount.codes_from_chunk`` followed by it,
+as its main path ran them.  Each checkout runs in its own process (the packages
 share a name), in the order other, this, this, other; each process builds
 its kernels first and prints one JSON line: CUDA-event medians of
 ``--reps`` calls after a warm-up, and a digest of the outputs, which must
@@ -85,6 +91,48 @@ def k5_calls(cs, dev):
         "k5": lambda: cuda_skm.run_rows_slotted(packed, sep, k=k, n=n, S=S_SLOTS, dense=False)}
 
 
+def k3_calls(cs, dev):
+    import torch
+    from kaarme_tpu_torch.ops import cuda_winkeys, sortcount
+
+    n, calls = cs.N_WINDOWS, {}
+    codes_input = takes_codes(cuda_winkeys.window_keys)
+    for k in (51, 13):
+        packed, sep, _ = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
+
+        def fn(packed=packed, sep=sep, k=k):
+            if codes_input:
+                codes = sortcount.codes_from_chunk(packed, sep, k=k, n=n, dense=False)
+                keys = cuda_winkeys.window_keys(codes, k, n)
+            else:
+                keys = cuda_winkeys.window_keys(packed, sep, k=k, n=n, dense=False)
+            return keys, torch.tensor([len(keys)])
+        calls[f"k{k}"] = fn
+    return ("codes_from_chunk + K3 (codes input)" if codes_input else "K3 (chunk input)"), calls
+
+
+def k4_calls(cs, dev):
+    """K4 at chip_smoke's two shapes; the inputs come from the plain
+    versions (the window keys from codes, sort, the plain K2), so both
+    checkouts time the same rows."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, cuda_winkeys
+
+    n, calls = cs.N_WINDOWS, {}
+    for k in (51, 13):
+        codes = cs.read_stream(dev, 4_600_000, 2 * n + k - 1, n_every=100_003)
+        first = cuda_winkeys.window_keys_torch(codes[:n + k - 1], k, n)
+        nxt = cuda_winkeys.window_keys_torch(codes[n:], k, n)
+        del codes
+        a, b, emb, eb, _ = cs.k4_runs(first, nxt, k, cuda_compact.segsum_compact_torch, CAP)
+        del first, nxt
+        torch.cuda.empty_cache()
+        calls[f"k{k}_{'embedded' if emb else 'separate'}"] = (
+            lambda a=a, b=b, emb=emb, eb=eb: cuda_merge.merge_compact(
+                a, b, embedded=emb, ebits=eb, out_len=CAP))
+    return "K4", calls
+
+
 def k2_calls(cs, dev):
     """K2 at chip_smoke's three timed shapes; the inputs come from the
     plain versions, so both checkouts time the same rows."""
@@ -123,7 +171,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
     cs = chip_smoke()
     dev = torch.device("cuda", 0)
     _build.lib()
-    api, calls = {"k1": k1_calls, "k2": k2_calls, "k5": k5_calls}[kernel](cs, dev)
+    api, calls = {"k1": k1_calls, "k2": k2_calls, "k3": k3_calls, "k4": k4_calls,
+                  "k5": k5_calls}[kernel](cs, dev)
     out = dict(root=root, api=api, ms={}, digest={})
     for name, fn in calls.items():
         res = fn()
@@ -138,7 +187,7 @@ def worker(kernel: str, root: str, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
-    ap.add_argument("--kernel", choices=("k1", "k2", "k5"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5"), required=True)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
