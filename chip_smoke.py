@@ -37,11 +37,19 @@ Run from the repository root.  It builds the port's CUDA kernels from
    must be dropped: kernel == plain (the unpack, then the plain
    segmentation), rows and max_tile_runs; and on a tail of no whole
    number of 512-window tiles;
-6. the CLI end to end on small inputs (skm: k=31 and k=51, -m 0 and
+6. T1 (the atomic probe-table insert) against its plain version (the
+   probe rounds): one 2^20-window batch of the table route into a
+   2^23-slot table already holding the previous batches' keys at k=51
+   (W=4), k=13 (W=1) and k=201 (W=13), and a poly-A batch, as multisets
+   of occupied (key row, count) pairs with the table's invariants (no
+   key in two slots, lookup finds every stored key); overfull 2^8-slot
+   tables (max_probes=8) where stored + pending == input per key; its
+   time beside the plain version's and its bound;
+7. the CLI end to end on small inputs (skm: k=31 and k=51, -m 0 and
    -m 2; classic: k=13, and k=31 with ``--compactor merge``) against a
    string-based golden count, and the slotted skm counter at S=8
    (S-ladder replays) against it too;
-7. the CLI at full size: a random 4.6 Mb genome, 150 bp reads at 30x
+8. the CLI at full size: a random 4.6 Mb genome, 150 bp reads at 30x
    coverage, ``-s 8000000 -a 1``: k=51 on the skm route (count file ==
    ``--kernels plain``), the slotted skm counter (``segpack="slotted"``,
    the library API; count file == the skm route's, K5 launched on every
@@ -54,7 +62,14 @@ Run from the repository root.  It builds the port's CUDA kernels from
    ``-a 1`` file without its count-1 lines); each with the launch
    counters of its kernels > 0 (K3 exactly once per dispatched classic
    superstep and Bloom pass-1 superstep, K4 once per merge superstep)
-   and its peak device memory printed.
+   and its peak device memory printed; then the probe table
+   (``--backend table``, written in slot order, so compared sorted by
+   ``utils/compare.py``): k=51 (== the skm route's file), the same with
+   ``--kernels plain`` (== the kernel run; T1 never launched), k=13 (==
+   the classic k=13 file, counts summing to the valid windows) and
+   ``-b -u 5000000 -a 2`` (== the skm route's ``-b`` file), T1 launched
+   once per batch (and twice per grow event), K3 once per batch (and
+   per Bloom pass-1 batch and grow event).
 
 Each kernel phase also computes the kernel's bound at its shape: the
 least time the card could take, each input byte read once and each
@@ -63,9 +78,11 @@ output byte written once at 3.35 TB/s against its 32-bit operations at
 launched once per superstep and replay.  Each phase raises on failure
 (non-zero exit).  The last lines are the kernel table as JSON (with
 each kernel's bound, its share and ``library_ms``: null, as no single
-PyTorch call computes any of these functions), the card's name and
-power limit, and {"ok": true, "device": {...}}.  Exits non-zero without
-a CUDA device, and where the port has imported jax or kaarme_tpu.
+PyTorch call computes any of these functions; T1, which is not a TPU
+kernel but replaces the JAX package's XLA probe rounds, has its entry
+too), the card's name and power limit, and {"ok": true, "device":
+{...}}.  Exits non-zero without a CUDA device, and where the port has
+imported jax or kaarme_tpu.
 """
 
 from __future__ import annotations
@@ -669,6 +686,255 @@ def phase_k5(dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, **b)
 
 
+TABLE_TILE, TABLE_BATCH_TILES = 1 << 14, 64     # CounterConfig's defaults: 2^20 windows
+TABLE_LOG2 = 23                                   # -s 8000000
+
+
+def table_batch(codes, b: int, k: int):
+    """Batch ``b`` of the table route over int32 codes (64 tiles of 2^14
+    windows): its transfer chunk, and the route's step before T1 on it
+    (K3's window keys, validity and slot hashes, ``table.chunk_windows``)
+    as a function of no arguments returning (keys, valid, h)."""
+    from kaarme_tpu_torch.ops import table
+
+    per = TABLE_TILE * TABLE_BATCH_TILES
+    packed, seps, _ = chunk_of(codes[b * per: (b + 1) * per + k - 1])
+    return lambda: table.chunk_windows(packed, seps, k=k, n=per)
+
+
+def occupied_rows(tk, cn):
+    """The table's occupied (key row, count) pairs sorted by key: (W+1, m)."""
+    from kaarme_tpu_torch.ops import sortcount
+
+    occ = cn > 0
+    return sortcount.lexsort(list(tk[occ].T) + [cn[occ]], num_keys=tk.shape[1])
+
+
+def check_table(tk, cn, max_probes: int, what: str):
+    """The table's invariants: no key in two slots, every stored key
+    found by the probe-round lookup with its count; returns the sorted
+    occupied rows."""
+    import torch
+    from kaarme_tpu_torch.ops import hashing, table
+
+    rows = occupied_rows(tk, cn)
+    W = tk.shape[1]
+    if rows.shape[1] > 1 and not bool((rows[:W, 1:] != rows[:W, :-1]).any(0).all()):
+        raise AssertionError(f"{what}: a key sits in two slots")
+    keys = tuple(rows[:W])
+    found = table.lookup(tk, cn, keys, hashing.hash_words(keys), max_probes=max_probes)
+    if not torch.equal(found, rows[W]):
+        raise AssertionError(f"{what}: lookup misses stored keys")
+    occupancy = int((cn > 0).sum())
+    if occupancy != rows.shape[1]:
+        raise AssertionError(f"{what}: occupancy {occupancy} != {rows.shape[1]} distinct keys")
+    return rows
+
+
+def key_totals(keys, amounts):
+    """(distinct key columns (W, d), the summed amount of each)."""
+    import torch
+    from kaarme_tpu_torch.ops import sortcount
+
+    uk, inv = torch.unique(torch.stack([sortcount.i32(x) for x in keys]), dim=1,
+                           return_inverse=True)
+    tot = torch.zeros(uk.shape[1], dtype=torch.int64, device=uk.device)
+    return uk, tot.index_add_(0, inv, amounts.to(torch.int64))
+
+
+def table_traffic(cn0, tk, cn, keys, valid, h, max_probes: int) -> dict:
+    """What an insert of this batch must move in the table, from its
+    counts before (cn0) and the table after (tk, cn): the probe chains
+    of the valid windows end at their key's slot (max_probes probes for
+    one left pending); each distinct 32 B sector of counts and of key
+    rows that the chains touch is read once, and each such sector whose
+    content changed is written once, however many probes share it."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_table, sortcount
+
+    C, W = tk.shape
+    kmat = torch.stack([sortcount.i32(x) for x in keys], 1)
+    hv = h.to(torch.int64) & 0xFFFFFFFF
+    pending = valid.clone()
+    probe = torch.zeros_like(hv)
+    touched, probes = [], 0
+    for _ in range(max_probes):
+        probes += int(pending.sum())
+        if not bool(pending.any()):
+            break
+        slot = (hv + cuda_table._tri(probe)) & (C - 1)
+        touched.append(slot[pending])
+        pending &= ~((cn[slot] > 0) & (tk[slot] == kmat).all(1))
+        probe += pending
+    slots = torch.unique(torch.cat(touched)) if touched else probe[:0]
+
+    def sectors(s):
+        """Distinct 32 B sectors of the counts and of the key rows of slots s."""
+        if not s.numel():
+            return 0, 0
+        first, last = (4 * W * s) // 32, (4 * W * s + 4 * W - 1) // 32
+        rows = torch.cat([(first + i)[first + i <= last]
+                          for i in range(int((last - first).max()) + 1)])
+        return torch.unique(s >> 3).numel(), torch.unique(rows).numel()
+
+    n_cnt, n_key = sectors(slots)
+    changed = slots[cn[slots] != cn0[slots]]
+    claimed = changed[cn0[changed] == 0]
+    w_cnt, _ = sectors(changed)
+    _, w_key = sectors(claimed)
+    return dict(probes=probes, slots=slots.numel(), count_sectors=n_cnt, key_sectors=n_key,
+                sectors_written=w_cnt + w_key, bytes=32 * (n_cnt + n_key + w_cnt + w_key))
+
+
+def cuda_ms_fresh(prepare, fn, reps: int = 5) -> float:
+    """Median milliseconds of ``fn(*prepare())`` by CUDA events around
+    ``fn`` alone (one warm-up): each run gets fresh inputs."""
+    import torch
+
+    fn(*prepare())
+    times = []
+    for _ in range(reps):
+        args = prepare()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_t1(dev):
+    """T1 (the atomic table insert) against its plain version (the probe
+    rounds): one 2^20-window batch of the table route into a 2^23-slot
+    table that already holds the previous batches' keys, at k=51 (63
+    batches before it), k=13 and k=201 (7 before it), and a poly-A batch
+    (one key, every lane on one slot), as multisets of occupied (key row,
+    count) pairs, with the table's invariants; then overfull 2^8-slot
+    tables with max_probes=8 and amounts 1-5, where the pending sets may
+    differ: per key, stored count + pending amounts == input, no key in
+    two slots, every stored key found by lookup.  Times the kernel and the
+    plain version from the same table, with the bound: the inputs once,
+    plus each distinct 32 B sector of counts and key rows that the probe
+    chains touch, read once and written once where it changed."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_table, table
+
+    per = TABLE_TILE * TABLE_BATCH_TILES
+    out, err = {}, 0
+    for k, before in ((51, 63), (13, 7), (201, 7), ("polyA", 0)):
+        if k == "polyA":
+            k = K
+            codes = torch.zeros(per + k - 1, dtype=torch.int32, device=dev)
+            label = f"poly-A k={k}"
+        else:
+            # reads of 300 bp at k=201 (the long-k shape), else 150 bp
+            codes = read_stream(dev, 4_600_000, (before + 1) * per + k - 1,
+                                read_len=300 if k > 150 else 150, n_every=100_003)
+            label = f"k={k}"
+        W = (k + 15) // 16
+        tk, cn = table.make_table(TABLE_LOG2, W, dev)
+        for b in range(before):
+            keys, valid, h = table_batch(codes, b, k)()
+            if int(cuda_table.table_insert(tk, cn, keys, valid, h)[1]):
+                raise AssertionError(f"T1 {label}: pending windows while filling the table")
+        step = table_batch(codes, before, k)
+        keys, valid, h = step()
+        # the route's window keys (K3) and hashes that feed T1
+        win_ms = cuda_ms(step)
+        del codes, step
+        fresh = lambda: (tk.clone(), cn.clone())
+        run = lambda t, c: cuda_table.table_insert(t, c, keys, valid, h)
+        run_plain = lambda t, c: cuda_table.table_insert_plain(t, c, keys, valid, h)
+        tk_k, cn_k = fresh()
+        pk, nk = run(tk_k, cn_k)
+        tk_p, cn_p = fresh()
+        pp, np_ = run_plain(tk_p, cn_p)
+        torch.cuda.synchronize()
+        if int(nk) or int(np_) or bool(pk.any()) or bool(pp.any()):
+            raise AssertionError(f"T1 {label}: pending {int(nk)} (kernel), {int(np_)} (plain)")
+        rk = check_table(tk_k, cn_k, 64, f"T1 {label} kernel")
+        rp = check_table(tk_p, cn_p, 64, f"T1 {label} plain")
+        e = max_abs_err(list(rk), list(rp))
+        if e:
+            raise AssertionError(f"T1 {label}: kernel != plain multiset (max abs err {e})")
+        err = max(err, e)
+        n, nv = valid.shape[0], int(valid.sum())
+        total = int(cn_k.to(torch.int64).sum()) - int(cn.to(torch.int64).sum())
+        if total != nv:
+            raise AssertionError(f"T1 {label}: counts grew by {total}, valid windows {nv}")
+        ms = cuda_ms_fresh(fresh, run)
+        plain_ms = cuda_ms_fresh(fresh, run_plain)
+        # the u32 key words, valid bytes and u32 hashes in, the pending
+        # bytes out, and the table's distinct sectors that the probe
+        # chains touch (read once, written once where changed); next to
+        # no arithmetic
+        tr = table_traffic(cn, tk_k, cn_k, keys, valid, h, 64)
+        probes = tr["probes"]
+        nbytes = (4 * W + 1 + 4 + 1) * n + tr["bytes"]
+        b = dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bound_bytes=nbytes,
+                 bound_ops=0.0)
+        out[label] = dict(ms=ms, plain_ms=plain_ms, windows_ms=win_ms, **b)
+        print(f"T1 table_insert {label} W={W}: {n} windows ({nv} valid) into 2^{TABLE_LOG2} "
+              f"slots after {before} batches: {rk.shape[1]} keys stored (before: "
+              f"{int((cn > 0).sum())}), == plain as multisets, no key in two slots, lookup "
+              f"finds all; {probes} probes on {tr['slots']} distinct slots ({tr['count_sectors']} "
+              f"count sectors, {tr['key_sectors']} key-row sectors, {tr['sectors_written']} "
+              f"written); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.4f} ms (bytes: {nbytes}); the batch's window keys (K3) and "
+              f"hashes from its chunk {win_ms:.3f} ms")
+        del tk, cn, tk_k, cn_k, tk_p, cn_p, keys, valid, h, rk, rp
+        torch.cuda.empty_cache()
+    t1_overfull(dev)
+    main = out[f"k={K}"]
+    return dict(max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                windows_ms=main["windows_ms"],
+                k13_ms=out["k=13"]["ms"], k13_plain_ms=out["k=13"]["plain_ms"],
+                k13_bound_ms=out["k=13"]["bound_ms"], k201_ms=out["k=201"]["ms"],
+                k201_plain_ms=out["k=201"]["plain_ms"], k201_bound_ms=out["k=201"]["bound_ms"],
+                polya_ms=out[f"poly-A k={K}"]["ms"], polya_plain_ms=out[f"poly-A k={K}"]["plain_ms"],
+                polya_bound_ms=out[f"poly-A k={K}"]["bound_ms"],
+                **{key: main[key] for key in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")})
+
+
+def t1_overfull(dev):
+    """T1 and its plain version on 2^8-slot tables with max_probes=8 and
+    far more distinct keys than slots: the invariants on both."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_table, table, windows
+
+    done = []
+    for k in (13, K, 201):
+        codes = read_stream(dev, 4_600_000, 5000 + k - 1, read_len=300, n_every=997)
+        tiles = codes.unfold(0, 1000 + k - 1, 1000)
+        keys, valid, h = windows.windows_with_hash(tiles, k)
+        g = torch.Generator(device=dev).manual_seed(SEED + k)
+        amount = torch.randint(1, 6, valid.shape, generator=g, device=dev, dtype=torch.int32)
+        want = key_totals([x[valid] for x in keys], amount[valid])
+        W = len(keys)
+        for name, fn in (("kernel", cuda_table.table_insert),
+                         ("plain", cuda_table.table_insert_plain)):
+            tk, cn = table.make_table(8, W, dev)
+            pending, npend = fn(tk, cn, keys, valid, h, amount, max_probes=8)
+            torch.cuda.synchronize()
+            if int(npend) != int(pending.sum()) or not 0 < int(npend) < int(valid.sum()):
+                raise AssertionError(f"T1 overfull k={k} {name}: pending {int(npend)} vs mask "
+                                     f"{int(pending.sum())}")
+            if bool((pending & ~valid).any()):
+                raise AssertionError(f"T1 overfull k={k} {name}: an invalid window is pending")
+            rows = check_table(tk, cn, 8, f"T1 overfull k={k} {name}")
+            got = key_totals([torch.cat([r, x[pending].to(torch.int32)])
+                              for r, x in zip(rows[:W], keys)],
+                             torch.cat([rows[W], amount[pending]]))
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"T1 overfull k={k} {name}: stored + pending != input")
+            done.append(f"k={k} {name}: {rows.shape[1]} stored, {int(npend)} pending")
+    print(f"T1 overfull 2^8 slots, max_probes=8, {want[0].shape[1]} distinct keys at k=201: "
+          f"stored counts + pending amounts == input per key, no key in two slots, lookup "
+          f"finds every stored key; {'; '.join(done)}")
+
+
 def write_reads_fasta(path, genome_len: int, coverage: int, read_len: int = 150,
                       seed: int = SEED):
     """The reference's example shape (examples/make_example.py): a random
@@ -741,13 +1007,14 @@ def phase_small(tmp):
 
 
 def launch_counters():
-    from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, cuda_skm, cuda_winkeys
+    from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, cuda_skm, cuda_table, cuda_winkeys
 
     return {"skm_dense": cuda_skm.run_rows_dense,
             "segsum_compact": cuda_compact.segsum_compact,
             "window_keys": cuda_winkeys.window_keys,
             "merge_compact": cuda_merge.merge_compact,
-            "skm_slotted": cuda_skm.run_rows_slotted}
+            "skm_slotted": cuda_skm.run_rows_slotted,
+            "table_insert": cuda_table.table_insert}
 
 
 def slotted_count(argv, out_path: str, S=None):
@@ -795,10 +1062,21 @@ def counted(fn, label: str, uses=(), quiet: bool = False):
     fin = st.get("finalize_seconds")
     bloom = ""
     if "new_in_second" in st:
-        bloom = (f"; Bloom pass 1 {st['bloom_pass1_seconds']:.3f} s ({st['pass1_batches']} "
-                 f"supersteps), new_in_first {st['new_in_first']}, new_in_second "
+        pass1 = (f"{st['bloom_pass1_seconds']:.3f} s ({st['pass1_batches']} supersteps)"
+                 if "pass1_batches" in st else f"{st['bloom_pass_seconds']:.3f} s")
+        bloom = (f"; Bloom pass 1 {pass1}, new_in_first {st['new_in_first']}, new_in_second "
                  f"{st['new_in_second']}, {st['bloom_bits']} bits x 2, "
                  f"{st['bloom_hash_functions']} hash functions")
+    if "replayed_supersteps" not in st:
+        # the probe table: its build_seconds holds the device steps only
+        used, cap = counter.occupancy()
+        print(f"full size {label}: count {wall - st['write_seconds']:.3f} s (wall - write; "
+              f"device steps {st['build_seconds']:.3f} s; "
+              f"{st['windows_processed'] / (wall - st['write_seconds']):.0f} windows/s), write "
+              f"{st['write_seconds']:.3f} s, wall {wall:.3f} s, peak device memory {peak} bytes; "
+              f"batches {st['batches']}, grow events {st['grow_events']}, occupancy "
+              f"{used}/{cap}; launches {launches}" + bloom)
+        return counter, launches
     print(f"full size {label}: count {st['build_seconds']:.3f} s "
           f"({st['windows_processed'] / st['build_seconds']:.0f} windows/s), write "
           f"{st['write_seconds']:.3f} s"
@@ -844,6 +1122,69 @@ def check_launches(counter, launches, label: str, route: str, bloom: bool = Fals
     print(f"full size {label}: window_keys launched {got['window_keys']} times, merge_compact "
           f"{got['merge_compact']} ({st['batches']} supersteps + {st['replayed_supersteps']} "
           f"replayed" + (f", {pass1} pass-1 supersteps" if bloom else "") + ")")
+
+
+def same_counts(a: str, b: str, what: str):
+    """The two count files hold the same lines in any order (the probe
+    table writes slot order), by the port's ``utils/compare.py``."""
+    from kaarme_tpu_torch.utils import compare
+
+    equal, diffs = compare.compare_count_files(a, b)
+    if not equal:
+        raise AssertionError(f"count files differ: {what}: {diffs}")
+    print(f"full size: equal count files once sorted, {what}")
+
+
+def table_runs(path: str, out, n_reads: int, distinct: int):
+    """The probe table (--backend table) at full size: k=51 (== the skm
+    route's file, sorted), the same with --kernels plain (== the kernel
+    run), k=13 (== the classic k=13 file; counts sum to the valid
+    windows), and -b -u 5000000 -a 2 (== the skm -b file).  T1 launched
+    once per batch (plus two per grow) and K3 once per batch, pass-1
+    batch and grow on the kernel runs, neither on the plain one.  Returns
+    T1's launches in the k=51 run."""
+
+    def run(argv, label, plain=False):
+        counter, launches = run_full(argv + (["--kernels", "plain"] if plain else []), label,
+                                     () if plain else ("table_insert", "window_keys"))
+        st, t1, k3 = counter.stats, launches["table_insert"], launches["window_keys"]
+        bloom = "new_in_second" in st
+        want = (0, 0) if plain else (st["batches"] + 2 * st["grow_events"],
+                                     st["batches"] * (2 if bloom else 1) + st["grow_events"])
+        if (t1, k3) != want:
+            raise AssertionError(f"{label}: T1 launched {t1} times, K3 {k3}, for "
+                                 f"{st['batches']} batches ({'and as many pass-1 batches, ' if bloom else ''}"
+                                 f"{st['grow_events']} grow events)")
+        return counter, t1
+
+    argv = [path, str(K), "-s", "8000000", "-a", "1", "-q", "--backend", "table"]
+    counter, t1 = run(argv + ["-o", out("table")], f"k={K} --backend table")
+    _, cnt = counter.dump()
+    used = counter.occupancy()[0]
+    if used != distinct or int(cnt.sum()) != n_reads * (150 - K + 1):
+        raise AssertionError(f"table k={K}: {used} distinct, sum {int(cnt.sum())}")
+    del counter, cnt
+    same_counts(out("skm"), out("table"), f"k={K} --backend table == skm ({distinct} distinct)")
+    run(argv + ["-o", out("table_plain")], f"k={K} --backend table, plain", plain=True)
+    same_counts(out("table"), out("table_plain"), f"k={K} --backend table kernels == plain")
+
+    argv = [path, "13", "-s", "8000000", "-a", "1", "-q", "--backend", "table"]
+    counter, _ = run(argv + ["-o", out("table_k13")], "k=13 --backend table")
+    _, cnt = counter.dump()
+    if int(cnt.sum()) != n_reads * (150 - 13 + 1):
+        raise AssertionError(f"table k=13: sum of counts {int(cnt.sum())} != valid windows")
+    print(f"full size k=13 --backend table: occupancy {counter.occupancy()}, sum of counts "
+          f"{int(cnt.sum())} == valid windows")
+    del counter, cnt
+    same_counts(out("k13"), out("table_k13"), "k=13 --backend table == classic")
+
+    argv = [path, str(K), "-b", "-u", "5000000", "-a", "2", "-q", "--backend", "table"]
+    counter, _ = run(argv + ["-o", out("table_bloom")], f"k={K} -b -u 5000000 -a 2 --backend table")
+    if not 0 < counter.stats["new_in_second"]:
+        raise AssertionError("table -b: no second occurrences")
+    del counter
+    same_counts(out("bloom_skm"), out("table_bloom"), f"k={K} -b --backend table == skm -b")
+    return t1
 
 
 def phase_full(tmp):
@@ -948,7 +1289,8 @@ def phase_full(tmp):
             "segsum_compact": skm_launches["segsum_compact"],
             "window_keys": classic_launches["window_keys"],
             "merge_compact": merge_launches["merge_compact"],
-            "skm_slotted": slotted_launches["skm_slotted"]}
+            "skm_slotted": slotted_launches["skm_slotted"],
+            "table_insert": table_runs(path, out, n_reads, distinct)}
 
 
 def main() -> int:
@@ -992,6 +1334,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k5 = phase_k5(dev)
     torch.cuda.empty_cache()
+    t1 = phase_t1(dev)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase_small(tmp)
         launches = phase_full(tmp)
@@ -1017,6 +1361,9 @@ def main() -> int:
         dict(name="skm_slotted", route="cuda", source="kaarme_tpu_torch/csrc/skm_slotted.cu",
              replaces="kaarme_tpu/ops/pallas_skm.py:378", launches=launches["skm_slotted"],
              **timed(k5)),
+        dict(name="table_insert", route="cuda", source="kaarme_tpu_torch/csrc/table_insert.cu",
+             replaces="kaarme_tpu/ops/table.py:57", launches=launches["table_insert"],
+             **timed(t1)),
     ]}
     print(json.dumps(table))
     print(smi)

@@ -8,12 +8,12 @@ hand-written kernels; ``plain``: their plain PyTorch versions).
     python -m kaarme_tpu_torch.cli INPUT KLEN -s SLOTS [-m MODE] [-a MINABU]
                                    [-t THREADS] [-o OUT] [--device cuda|cpu]
 
-The single-device sort backend is ported: the super-k-mer pipeline
-(k >= 16) and the classic pipeline (``--pipeline classic``, the only
-route for k < 16), with ``--compactor merge`` (the linear run merge) on
-the classic one, and the two-pass Bloom prefilter (``-b -u U [-f FPR]``)
-on both.  ``--backend table`` (with or without ``-b``) and ``--devices``
-are refused with a "not yet ported" error.
+Every single-device route is ported: on the sort backend the
+super-k-mer pipeline (k >= 16) and the classic pipeline (``--pipeline
+classic``, the only route for k < 16), with ``--compactor merge`` (the
+linear run merge) on the classic one; the probe table (``--backend
+table``); and the two-pass Bloom prefilter (``-b -u U [-f FPR]``) on
+each.  ``--devices`` > 1 is refused with a "not yet ported" error.
 """
 
 from __future__ import annotations
@@ -53,11 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--devices", type=int, default=0,
                    help="Shard the table over this many devices (0 = single device)")
     p.add_argument("--backend", choices=("sort", "table"), default="sort",
-                   help="Counting backend: 'sort' (flagship sort/segment-reduce "
-                        "pipeline, fastest on TPU; -b runs the two-pass Bloom "
-                        "prefilter on it) or 'table' (EXPERIMENTAL batched "
-                        "open-addressing probe table — a correctness oracle, "
-                        "orders of magnitude slower than 'sort') (def. sort)")
+                   help="Counting backend: 'sort' (sort/segment-reduce pipeline; "
+                        "-b runs the two-pass Bloom prefilter on it) or 'table' "
+                        "(open-addressing probe table in device memory, "
+                        "written in slot order; -b gates its inserts on the "
+                        "filter) (def. sort)")
     p.add_argument("--compactor", default="auto",
                    choices=("auto", "pallas", "xla", "interpret", "merge",
                             "merge_interpret"),
@@ -128,9 +128,6 @@ def validate(args) -> str:
     err = _validate_reference(args)
     if err:
         return err
-    if args.backend != "sort":
-        bloom = " (and its Bloom prefilter -b)" if args.use_bfilter else ""
-        return f"--backend {args.backend}{bloom} is not yet ported"
     if args.devices > 1:
         return "--devices > 1 (multi-device counting) is not yet ported"
     if args.compactor not in ("auto", "merge"):
@@ -163,8 +160,10 @@ def run(argv=None):
 
     from .io.reader import FormatError, sniff_format
     from .models import bloom_counter
+    from .models.counter import CounterConfig, KmerCounter
     from .models.skm_counter import SkmCounter, SkmCounterConfig
     from .models.sort_counter import SortCounterConfig, SortKmerCounter
+    from .utils.device import resolve_device
 
     try:
         fmt, gz = sniff_format(args.INPUT)
@@ -196,7 +195,14 @@ def run(argv=None):
     kw = config_kwargs(args)
     bloom = (args.unq_kmers, args.bfilter_fpr) if args.use_bfilter else None
     try:
-        if args.pipeline == "skm":
+        resolve_device(args.device)
+        if args.backend == "table":
+            table_kw = dict(k=args.KLEN, mode=args.hash_table_type,
+                            min_abundance=args.min_k_abu, device=args.device,
+                            kernels=args.kernels)
+            counter = None if bloom else KmerCounter(
+                CounterConfig(min_slots=args.hash_tab_size, **table_kw))
+        elif args.pipeline == "skm":
             # the skm pipeline has no merge variant: --compactor is ignored
             cfg = SkmCounterConfig(**kw)
             counter = (bloom_counter.BloomSkmCounter(cfg, *bloom) if bloom
@@ -210,7 +216,13 @@ def run(argv=None):
         return 1, None
     t0 = time.perf_counter()
     prefetch = max(1, args.threads - 2)
-    if bloom:
+    if bloom and args.backend == "table":
+        # two passes over the file; the table is sized from the filter
+        counter = bloom_counter.bloom_count_file(
+            bloom_counter.BloomCounterConfig(expected_unique=args.unq_kmers,
+                                             fpr=args.bfilter_fpr, **table_kw),
+            args.INPUT, prefetch=prefetch)
+    elif bloom:
         # two passes over the file: fill the filter, then count its hits
         counter.count_file_two_pass(args.INPUT, prefetch=prefetch)
     else:
@@ -236,13 +248,17 @@ def run(argv=None):
         print(f"K-mers written: {n}")
 
     if args.query:
-        # point lookups: dump once, binary-search per stdin line
+        # point lookups: dump once, sort the probe table's dump (slot
+        # order; the sort backend's is sorted), binary-search per stdin line
         import numpy as np
 
         from .ops.sortcount import lookup_sorted
         from .utils import codec
 
         tk, cn = counter.dump()
+        if args.backend == "table":
+            order = np.lexsort(tuple(tk[:, i] for i in range(tk.shape[1] - 1, -1, -1)))
+            tk, cn = tk[order], cn[order]
         for line in sys.stdin:
             qk = line.strip()
             if not qk:

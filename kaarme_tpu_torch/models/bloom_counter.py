@@ -1,14 +1,16 @@
-"""Two-pass Bloom-prefiltered counting on the sort backend, in PyTorch —
-the counterpart of the sort-backend half of
-``kaarme_tpu/models/bloom_counter.py`` (the reference's ``-b`` mode).
+"""Two-pass Bloom-prefiltered counting, in PyTorch — the counterpart of
+``kaarme_tpu/models/bloom_counter.py`` (the reference's ``-b`` mode), on
+the probe table (``bloom_count_file``: ``--backend table -b``) and on
+the sort backend.
 
 pass 1  stream the whole input; every valid window's canonical key
         (K3) is hashed to a 64-bit root and inserted into the two-stage
         blocked Bloom filter (BF1 = seen once, BF2 = seen twice);
-sizing  the classic store is sized from 2 x the BF2 counter
-        ``new_in_second``; BF1 is dropped;
+sizing  the probe table and the classic store are sized from 2 x the
+        BF2 counter ``new_in_second``; BF1 is dropped;
 pass 2  stream the input again and count only k-mers whose bits are all
-        set in BF2: on the classic pipeline failing windows become
+        set in BF2: the probe table inserts only windows that hit BF2
+        (``BloomFilteredCounter``); on the classic pipeline failing windows become
         sentinel rows before the sort (the ``bloom``/``hfn`` gate of
         ``ops/sortcount``'s supersteps, with K2 or K4); on the skm
         pipeline runs stream unfiltered (a run row packs up to LMAX
@@ -16,13 +18,19 @@ pass 2  stream the input again and count only k-mers whose bits are all
         windows materialize.
 
 Singletons never reach the final store; false positives only admit
-singletons that the min-abundance threshold drops.  BF words and both
-counters equal the JAX package's at equal superstep sizes (the batch
-boundaries decide which second occurrences a batch sees).
+singletons that the min-abundance threshold drops.  Both backends size
+the filters alike (``make_filters``) and run the same pass-1 step
+(``sortcount.bloom_pass1_superstep``: K3 on the transfer chunk, then the
+filter insert), each over its own batches: the table's tile batches, the
+sort backend's supersteps.  BF words and both counters equal the JAX
+package's at equal batch sizes (tile and batch_tiles on the table,
+superstep sizes on the sort backend): the batch boundaries decide which
+second occurrences a batch sees.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -30,9 +38,124 @@ import numpy as np
 from ..io import reader as io_reader
 from ..ops import bloom as bloom_ops
 from ..ops import sortcount
+from ..utils.device import resolve_device
 from ..utils.mathutils import bloom_sizing
+from .counter import CounterConfig, KmerCounter
 from .skm_counter import SkmCounter
-from .sort_counter import SortKmerCounter
+from .sort_counter import SortKmerCounter, pack_chunk, to_device
+from .tiling import TileBatcher
+
+
+def make_filters(expected_unique: int, fpr: float, device):
+    """(bits, hfn, BF1, BF2): the two empty filters sized for
+    ``expected_unique`` keys at ``fpr``."""
+    bits, hfn = bloom_sizing(expected_unique, fpr)
+    # blocked layout: extra bits buy back the one-word fp inflation
+    bits = max(bits, 1 << 10) * bloom_ops.BLOCK_COMPENSATION
+    return bits, hfn, bloom_ops.make_bloom(bits, device), bloom_ops.make_bloom(bits, device)
+
+
+# ---------------------------------------------------------------------------
+# The probe table (--backend table -b)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BloomCounterConfig:
+    k: int
+    expected_unique: int
+    fpr: float = 0.01
+    mode: int = 2
+    min_abundance: int = 2
+    tile: int = 1 << 14
+    batch_tiles: int = 64
+    max_probes: int = 64
+    device: str = "cuda"
+    kernels: str = "cuda"
+
+
+class BloomFilteredCounter(KmerCounter):
+    """Pass-2 counter on the probe table: windows must hit BF2 to be
+    counted."""
+
+    def __init__(self, config: CounterConfig, bf2, hfn: int):
+        super().__init__(config)
+        self.bf2 = bf2
+        self.hfn = hfn
+
+    def _window_kwargs(self) -> dict:
+        return {"bloom": self.bf2, "hfn": self.hfn}
+
+
+def bloom_pass1(cfg: BloomCounterConfig, chunks):
+    """Stream chunks through the Bloom filter in the table's batches;
+    returns (bf2, hfn, stats)."""
+    dev = resolve_device(cfg.device)
+    bits, hfn, bf1, bf2 = make_filters(cfg.expected_unique, cfg.fpr, dev)
+    new1 = new2 = 0        # device scalars after the first batch: one sync at the end
+    t0 = time.perf_counter()
+    batcher = TileBatcher(cfg.k, cfg.tile, cfg.batch_tiles)
+
+    def run(batch):
+        nonlocal bf1, bf2, new1, new2
+        packed, sep, n, dense = pack_chunk(batch, cfg.tile * cfg.batch_tiles)
+        bf1, bf2, n1, n2 = sortcount.bloom_pass1_superstep(
+            bf1, bf2, to_device(packed, dev), to_device(sep, dev), k=cfg.k, n=n, dense=dense,
+            hfn=hfn, kernels=cfg.kernels)
+        new1 = new1 + n1
+        new2 = new2 + n2
+
+    for codes in chunks:
+        for batch in batcher.add_flat(codes):
+            run(batch)
+    for batch in batcher.finish_flat():
+        run(batch)
+    stats = {
+        "bloom_bits": bits,
+        "bloom_hash_functions": hfn,
+        "new_in_first": int(new1),
+        "new_in_second": int(new2),
+        "bloom_pass_seconds": time.perf_counter() - t0,
+    }
+    # squeeze: BF1 is no longer needed once sizing is known
+    del bf1
+    return bf2, hfn, stats
+
+
+def _pass2_counter(cfg: BloomCounterConfig, bf2, hfn: int, stats) -> BloomFilteredCounter:
+    """The pass-2 counter, its table sized from the BF2 counter (the
+    reference's 2 x new_in_second)."""
+    ccfg = CounterConfig(
+        k=cfg.k, min_slots=max(1 << 10, 2 * stats["new_in_second"]), mode=cfg.mode,
+        min_abundance=cfg.min_abundance, tile=cfg.tile, batch_tiles=cfg.batch_tiles,
+        max_probes=cfg.max_probes, device=cfg.device, kernels=cfg.kernels)
+    counter = BloomFilteredCounter(ccfg, bf2, hfn)
+    counter.stats.update(stats)
+    return counter
+
+
+def bloom_count_file(cfg: BloomCounterConfig, path: str,
+                     chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
+                     prefetch: int = 4) -> BloomFilteredCounter:
+    """Both passes over a file (it is read twice)."""
+    def stream():
+        chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
+        if prefetch:
+            chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
+        return chunks
+
+    counter = _pass2_counter(cfg, *bloom_pass1(cfg, stream()))
+    return counter.count_file(path, chunk_bytes=chunk_bytes, prefetch=prefetch)
+
+
+def bloom_count_codes(cfg: BloomCounterConfig, codes: np.ndarray) -> BloomFilteredCounter:
+    """In-memory two-pass variant (tests, library use)."""
+    counter = _pass2_counter(cfg, *bloom_pass1(cfg, [np.asarray(codes, np.uint8)]))
+    return counter.count_codes(codes)
+
+
+# ---------------------------------------------------------------------------
+# The sort backend (skm and classic pipelines)
+# ---------------------------------------------------------------------------
 
 
 class _TwoPassBloom:
@@ -42,15 +165,10 @@ class _TwoPassBloom:
     add_codes, call ``start_pass2()``, then stream again and finish."""
 
     def _init_bloom(self, expected_unique: int, fpr: float):
-        bits, hfn = bloom_sizing(expected_unique, fpr)
-        # blocked layout: extra bits buy back the one-word fp inflation
-        bits = max(bits, 1 << 10) * bloom_ops.BLOCK_COMPENSATION
-        self.hfn = hfn
-        self.bf1 = bloom_ops.make_bloom(bits, self.device)
-        self.bf2 = bloom_ops.make_bloom(bits, self.device)
+        bits, self.hfn, self.bf1, self.bf2 = make_filters(expected_unique, fpr, self.device)
         self._phase = 1
         self._n12 = []
-        self.stats.update({"bloom_bits": bits, "bloom_hash_functions": hfn,
+        self.stats.update({"bloom_bits": bits, "bloom_hash_functions": self.hfn,
                            "new_in_first": 0, "new_in_second": 0,
                            "bloom_pass1_seconds": 0.0})
 

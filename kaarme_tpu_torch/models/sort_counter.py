@@ -76,6 +76,27 @@ def live_rows_to_host(cols, nd: int, words: int):
     return keys[live], cnt[live]
 
 
+def pack_chunk(stream: np.ndarray, n: int):
+    """The transfer chunk of an n-window span of codes (its n + k - 1
+    codes): (2-bit packed words, separators, n, dense).  Separators ship
+    as an index list unless they are denser than 1/32 of the positions,
+    where the n/8-byte bitmap is smaller."""
+    packed, maskw = fastio.pack_stream(stream)
+    seps = np.flatnonzero(stream >= 4).astype(np.uint32)
+    if seps.shape[0] <= max(n // 32, 32):
+        return packed, seps, n, False
+    return packed, maskw, n, True
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array of 4-byte words -> int32 tensor on ``device`` (pinned,
+    non-blocking copy to a card)."""
+    t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 @dataclasses.dataclass
 class SortCounterConfig:
     k: int
@@ -102,8 +123,7 @@ class SortCounterConfig:
             raise ValueError("batch_windows must be a power of two >= 32")
         if self.superbatch_batches < 1:
             raise ValueError("superbatch_batches must be >= 1")
-        if self.kernels not in ("cuda", "plain"):
-            raise ValueError("kernels must be 'cuda' or 'plain'")
+        sortcount.check_kernels(self.kernels)
         if self.compactor not in ("auto", "merge"):
             raise ValueError("compactor must be 'auto' or 'merge' (the kernels are "
                              "chosen by 'kernels')")
@@ -195,28 +215,15 @@ class SortKmerCounter:
             self._launch(final=False)
 
     def _prepare(self, stream: np.ndarray, n: int):
-        """Worker-thread half: 2-bit pack and separator list (host only).
-        Separators ship as an index list unless they are denser than
-        1/32 of the positions, where the n/8-byte bitmap is smaller."""
-        stream = stream[: n + self.cfg.k - 1]
-        packed, maskw = fastio.pack_stream(stream)
-        seps = np.flatnonzero(stream >= 4).astype(np.uint32)
-        if seps.shape[0] <= max(n // 32, 32):
-            return packed, seps, n, False
-        return packed, maskw, n, True
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        """Worker-thread half: the superstep's transfer chunk (host only)."""
+        return pack_chunk(stream[: n + self.cfg.k - 1], n)
 
     def _launch(self, final: bool):
         """Main-thread half: copy and dispatch prepared supersteps (all of
         them when ``final``, else all but the newest)."""
         while self._prepped and (final or len(self._prepped) > 1):
             packed, sep, n, dense = self._prepped.pop(0).result()
-            packed_d, sep_d = self._to_device(packed), self._to_device(sep)
+            packed_d, sep_d = to_device(packed, self.device), to_device(sep, self.device)
             self._drain(keep=self._max_inflight)
             self._dispatch(packed_d, sep_d, n, dense)
             self.stats["batches"] += 1

@@ -165,7 +165,7 @@ def _kernel_finish(sorted_cols: torch.Tensor, cap: int, embedded: bool,
     version on CPU ones), "plain" -> the plain version everywhere."""
     from . import cuda_compact
 
-    _check_kernels(kernels)
+    check_kernels(kernels)
     fn = cuda_compact.segsum_compact if kernels == "cuda" else cuda_compact.segsum_compact_torch
     if embedded:
         okeys, ocnt, ndv = fn(sorted_cols, None, ebits=ebits, out_len=cap)
@@ -194,7 +194,7 @@ def embed_bits(k: int) -> int:
     return 2 * (16 - r) if r else 0
 
 
-def _check_kernels(kernels: str):
+def check_kernels(kernels: str):
     if kernels not in ("cuda", "plain"):
         raise ValueError(f"kernels must be 'cuda' or 'plain', got {kernels!r}")
 
@@ -211,7 +211,7 @@ def window_keys_from_chunk(packed, sep, *, k: int, n: int, dense: bool = False,
     ``_bloom_miss_mask`` gate."""
     from . import cuda_winkeys
 
-    _check_kernels(kernels)
+    check_kernels(kernels)
     if kernels == "cuda":
         keys = cuda_winkeys.window_keys(packed, sep, k=k, n=n, dense=dense)
     else:
@@ -269,7 +269,7 @@ def superstep_merged(packed, sep, prefix, *, k: int, n: int, ebits: int = 0,
     ``superstep_embedded``."""
     from . import cuda_merge
 
-    _check_kernels(kernels)
+    check_kernels(kernels)
     w = len(prefix) - 1
     cap = prefix[0].shape[0]
     embedded = ebits >= 21

@@ -1,0 +1,104 @@
+"""Open-addressing canonical k-mer count table in device memory, in
+PyTorch — the counterpart of ``kaarme_tpu/ops/table.py``.
+
+Layout: keys ``(C, W)`` int32 rows holding u32 bit patterns and counts
+``(C,)`` int32, C a power of two; an empty slot is count 0.  A key's
+probe chain is (h + i(i+1)/2) & (C - 1), i < ``max_probes`` (the
+triangular sequence, a full cycle modulo 2^m), with h the murmur3 hash
+of its words (``ops/hashing.hash_words``), so occupancy and the grow
+policy mean what they mean in the JAX package.
+
+``insert`` takes ``kernels``: ``"cuda"`` runs T1 (``cuda_table``: the
+atomic insert kernel on CUDA tensors, its plain version on CPU ones),
+``"plain"`` the plain version (the JAX package's probe rounds) on any
+device.  A full table does not abort: unresolved windows come back in
+``pending`` and the counter grows the table and retries
+(models/counter.py).  ``lookup`` is plain PyTorch probe rounds: it
+serves ``find``, off the counting path.
+
+The counting step takes a batch as its transfer chunk (2-bit words and
+separators, ``models/sort_counter.pack_chunk``), whose window keys K3
+makes as it does for the classic pipeline; an invalid window's key is
+all-ones in every word, which no canonical key is, so that is the
+validity mask.  Valid windows get the keys ``ops/windows`` gives the
+JAX package's code tiles (the same windows in the same order), so the
+plain insert places them as the JAX table does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import sortcount
+from .cuda_table import _tri, table_insert, table_insert_plain
+from .hashing import hash_words
+from .sortcount import M32, i32
+
+
+def make_table(capacity_log2: int, words: int, device):
+    """A fresh table on ``device``: (keys (C, W) int32, counts (C,) int32)."""
+    c = 1 << capacity_log2
+    return (torch.zeros((c, words), dtype=torch.int32, device=device),
+            torch.zeros((c,), dtype=torch.int32, device=device))
+
+
+def insert(tkeys, counts, keys, valid, h, amount=None, max_probes: int = 64,
+           kernels: str = "cuda"):
+    """Insert/accumulate a batch of canonical k-mers (``cuda_table``'s
+    contract; the table is updated in place).  Returns (tkeys, counts,
+    pending, n_pending): pending marks the valid windows that did not
+    land within ``max_probes`` probes, n_pending is their number as a
+    0-d int32 tensor on the table's device (the kernel counts them as it
+    goes)."""
+    sortcount.check_kernels(kernels)
+    run = table_insert if kernels == "cuda" else table_insert_plain
+    pending, n_pending = run(tkeys, counts, keys, valid, h, amount, max_probes=max_probes)
+    return tkeys, counts, pending, n_pending
+
+
+def lookup(tkeys, counts, keys, h, max_probes: int = 64) -> torch.Tensor:
+    """Point lookup: int32 count per key (0 if absent); an empty slot
+    ends a key's probe chain."""
+    c = tkeys.shape[0]
+    kmat = torch.stack([i32(k) for k in keys], 1)
+    n = kmat.shape[0]
+    hv = h.to(torch.int64) & M32
+    pending = torch.ones(n, dtype=torch.bool, device=tkeys.device)
+    probe = torch.zeros(n, dtype=torch.int64, device=tkeys.device)
+    out = torch.zeros(n, dtype=torch.int32, device=tkeys.device)
+    for _ in range(max_probes):
+        if not bool(pending.any()):
+            break
+        slot = (hv + _tri(probe)) & (c - 1)
+        g_cn = counts[slot]
+        occupied = g_cn > 0
+        key_eq = (tkeys[slot] == kmat).all(1)
+        out = torch.where(pending & occupied & key_eq, g_cn, out)
+        pending &= occupied & ~key_eq
+        probe += pending
+    return out
+
+
+def chunk_windows(packed, sep, *, k: int, n: int, dense: bool = False,
+                  kernels: str = "cuda", bloom=None, hfn: int = 0):
+    """A batch's transfer chunk -> (keys: W int32 columns, valid (n,)
+    bool, h (n,) int64 slot hashes) of its n windows.  ``bloom``/``hfn``:
+    windows whose key misses the Bloom filter are invalid too
+    (``sortcount.window_keys_from_chunk``)."""
+    keys = sortcount.window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense,
+                                            kernels=kernels, bloom=bloom, hfn=hfn)
+    return keys, sortcount._is_sentinel_i32(keys) == 0, hash_words(keys)
+
+
+def count_step(tkeys, counts, packed, sep, *, k: int, n: int, dense: bool = False,
+               max_probes: int = 64, kernels: str = "cuda", bloom=None, hfn: int = 0):
+    """One device step: a batch's transfer chunk -> canonical windows
+    (``chunk_windows``) -> insert.  Returns (tkeys, counts, n_overflow:
+    0-d int32 tensor, pending): pending is the exact per-window
+    unresolved mask, so a grow-and-retry re-inserts only what did not
+    land."""
+    keys, valid, h = chunk_windows(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
+                                   bloom=bloom, hfn=hfn)
+    tkeys, counts, pending, n_pending = insert(tkeys, counts, keys, valid, h,
+                                               max_probes=max_probes, kernels=kernels)
+    return tkeys, counts, n_pending, pending

@@ -2,9 +2,9 @@
 
 Store columns are numpy arrays on the JAX side (uint32 key columns, an
 int32 count column — the ``.npz`` checkpoint fields ``col0..colW``) and
-int32 bit-pattern tensors in the port.  These helpers convert both
-ways, so a run store or k-mer store, or a checkpoint, moves in either
-direction.
+int32 bit-pattern tensors in the port, and so are the probe table's
+key rows and counts.  These helpers convert both ways, so a run store,
+k-mer store, probe table or checkpoint moves in either direction.
 """
 
 from __future__ import annotations
@@ -58,3 +58,19 @@ def bloom_to_torch(words, device) -> torch.Tensor:
     -> the port's int32 word tensor on ``device``, bits unchanged."""
     a = np.asarray(words).astype(np.uint32, copy=False).view(np.int32)
     return torch.from_numpy(np.require(a, requirements=['C', 'W'])).to(device)
+
+
+def table_to_torch(tkeys, counts, device) -> tuple:
+    """A JAX package table ((C, W) uint32 keys, (C,) int32 counts, numpy
+    or JAX) -> the port's (int32 (C, W), int32 (C,)) tensors on
+    ``device``, bit patterns unchanged."""
+    tk = np.asarray(tkeys).astype(np.uint32, copy=False).view(np.int32)
+    cn = np.asarray(counts).astype(np.int32)
+    return (torch.from_numpy(np.require(tk, requirements=['C', 'W'])).to(device),
+            torch.from_numpy(np.require(cn, requirements=['C', 'W'])).to(device))
+
+
+def table_to_numpy(tkeys, counts) -> tuple:
+    """The port's table -> numpy ((C, W) uint32 keys, (C,) int32 counts),
+    the JAX package's layout."""
+    return tkeys.cpu().numpy().view(np.uint32), counts.cpu().numpy().astype(np.int32)

@@ -1,7 +1,8 @@
 """The PyTorch port's CLI: count files byte-identical to ``kaarme_tpu.cli``
-on the skm and classic routes, clear errors on the routes not yet
-ported, and no JAX anywhere in the port (a subprocess run and a source
-scan)."""
+on the skm and classic routes and equal to it once sorted on the probe
+table (which writes slot order), ``--query`` on an unsorted dump, a
+clear error on multi-device counting (not yet ported), and no JAX
+anywhere in the port (a subprocess run and a source scan)."""
 
 import os
 import pathlib
@@ -121,9 +122,59 @@ def test_bloom_count_file_byte_identical_to_reference(tmp_path, capsys, k, extra
     assert got == want
 
 
+@pytest.mark.parametrize("k,extra,mode,abu", [
+    (13, ["-s", "4096"], 2, 1), (31, ["-s", "4096"], 0, 2), (51, ["-s", "4096"], 2, 2),
+    (13, ["-b", "-u", "4000"], 0, 2), (31, ["-b", "-u", "4000"], 2, 1),
+    (51, ["-b", "-u", "4000"], 0, 1)])
+def test_table_count_file_matches_reference(tmp_path, capsys, k, extra, mode, abu):
+    """--backend table, with and without the two-pass Bloom prefilter:
+    the count file (slot order) equals the JAX CLI's once sorted, and the
+    golden count (>= 2 with -b, where singletons never reach the table)."""
+    p = _fasta(tmp_path, seed=k + 3 * mode)
+    a, b = tmp_path / "port.out", tmp_path / "ref.out"
+    ha, hb = tmp_path / "port.histo", tmp_path / "ref.histo"
+    common = [str(p), str(k)] + extra + ["--backend", "table", "-m", str(mode), "-a", str(abu)]
+    rc, counter = cli.run(common + ["-o", str(a), "--histo", str(ha), "--device", "cpu"])
+    assert rc == 0 and type(counter).__name__ == ("BloomFilteredCounter" if "-b" in extra
+                                                  else "KmerCounter")
+    used, cap = counter.occupancy()
+    assert f"Hash table slots in use: {used}/{cap}" in capsys.readouterr().out
+    assert ref_cli.main(common + ["-q", "-o", str(b), "--histo", str(hb)]) == 0
+    assert sorted(a.read_bytes().splitlines()) == sorted(b.read_bytes().splitlines())
+    assert ha.read_bytes() == hb.read_bytes()
+    golden = codec.golden_count(io_reader.read_codes(str(p)), k)
+    clip = (lambda c: c & 0xFFFF) if mode == 0 else (lambda c: min(c, 16383))
+    least = 2 if "-b" in extra else 1
+    want = {s: clip(c) for s, c in golden.items() if c >= least and clip(c) >= abu}
+    got = {ln.split()[0]: int(ln.split()[1]) for ln in a.read_text().splitlines()}
+    assert got == want
+
+
+def test_table_query_sorts_the_dump(tmp_path, monkeypatch, capsys):
+    """--query on the table route, whose dump is in slot order: every
+    answer is the golden count, 0 for absent k-mers, -1 for malformed
+    lines (a binary search of the unsorted dump would miss most)."""
+    import io
+
+    k = 21
+    p = _fasta(tmp_path, seed=11)
+    golden = codec.golden_count(io_reader.read_codes(str(p)), k)
+    rng = np.random.default_rng(11)
+    present = [s for s in rng.permutation(sorted(golden))[:60]]
+    queries = present + [codec.revcomp(s) for s in present[:10]] + ["A" * k, "ACGT", "N" * k]
+    monkeypatch.setattr(sys, "stdin", io.StringIO("\n".join(queries) + "\n"))
+    rc, counter = cli.run([str(p), str(k), "-s", "4096", "--backend", "table", "-a", "1",
+                           "--device", "cpu", "-q", "-o", str(tmp_path / "q.out"), "--query"])
+    assert rc == 0
+    tk, _ = counter.dump()
+    assert (np.lexsort(tk.T[::-1]) != np.arange(tk.shape[0])).any()      # slot order
+    out = capsys.readouterr().out.splitlines()
+    want = [str(golden[codec.canonical(s)]) for s in present + queries[60:70]]
+    want += [str(golden.get("A" * k, 0)), "-1", "-1"]
+    assert out == want
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["-b", "-u", "1000", "--backend", "table"], "Bloom"),
-    (["--backend", "table"], "--backend table"),
     (["--devices", "2"], "--devices"),
 ])
 def test_unported_routes_are_refused(tmp_path, capsys, extra, msg):
@@ -183,10 +234,12 @@ sys.meta_path.insert(0, _Block())
     (["13", "-s", "4096", "--pipeline", "classic"], ""),
     (["31", "-b", "-u", "4000"], ""),
     (["31", "-s", "4096", "--histo", "h.txt", "--query"], "ACGTACGTACGTACGTACGTACGTACGTACG\n"),
-], ids=["skm", "classic_k13", "bloom", "histo_query"])
+    (["31", "-s", "4096", "--backend", "table", "--query"], "ACGTACGTACGTACGTACGTACGTACGTACG\n"),
+], ids=["skm", "classic_k13", "bloom", "histo_query", "table"])
 def test_port_run_imports_no_jax(tmp_path, extra, stdin):
     """Every module of the port imports, and the CLI runs (skm, classic
-    k=13, -b -u, --histo with --query on stdin), with jax and kaarme_tpu
+    k=13, -b -u, --histo with --query on stdin, the probe table with
+    --query), with jax and kaarme_tpu
     refused by the import system; neither ends up in sys.modules."""
     p = _fasta(tmp_path, n=1200)
     argv = [str(p)] + extra + ["-q", "--device", "cpu", "-o", str(tmp_path / "o.txt")]

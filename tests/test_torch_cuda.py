@@ -555,3 +555,170 @@ def test_cli_kernels_equal_plain_route(dev, tmp_path):
     assert a.read_bytes() == b.read_bytes()
     counts = [int(ln.split()[1]) for ln in a.read_bytes().splitlines()]
     assert sum(counts) == 2000 * 100
+
+
+def _table_multiset(tk, cn):
+    """Occupied (key row, count) pairs sorted by key, (W+1, m) int32."""
+    occ = cn > 0
+    return sortcount.lexsort(list(tk[occ].T) + [cn[occ]], num_keys=tk.shape[1])
+
+
+def _table_keys(n, k, seed, dev):
+    """Canonical keys, validity and hashes of n windows of a random
+    stream with N patches, cut as the table route cuts them."""
+    from kaarme_tpu_torch.ops import windows
+
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 4, n + k - 1).astype(np.int32)
+    c[::997] = 4
+    c[500:503] = 4
+    c = torch.from_numpy(c).to(dev)
+    return windows.windows_with_hash(c.unfold(0, n // 4 + k - 1, n // 4), k)
+
+
+def _check_table_invariants(tk, cn, max_probes=64, hash_fn=None):
+    from kaarme_tpu_torch.ops import hashing, table
+
+    rows = _table_multiset(tk, cn)
+    W = tk.shape[1]
+    if rows.shape[1] > 1:
+        assert bool((rows[:W, 1:] != rows[:W, :-1]).any(0).all())     # no key in two slots
+    keys = tuple(rows[:W])
+    h = (hash_fn or hashing.hash_words)(keys)
+    found = table.lookup(tk, cn, keys, h, max_probes=max_probes)
+    assert torch.equal(found, rows[W])
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [13, 31, 51, 201])
+def test_t1_equals_plain(dev, k):
+    """From a table holding a first batch, a second batch (half of it the
+    first's windows again): the same multiset of (key row, count) from
+    the kernel and the plain rounds, no pending, the invariants."""
+    from kaarme_tpu_torch.ops import cuda_table, table
+
+    n = 1 << 16
+    first = _table_keys(n, k, seed=k, dev=dev)
+    second = _table_keys(n, k, seed=k + 1, dev=dev)
+    second = (tuple(torch.cat([a[: n // 2], b[n // 2:]]) for a, b in zip(first[0], second[0])),
+              torch.cat([first[1][: n // 2], second[1][n // 2:]]),
+              torch.cat([first[2][: n // 2], second[2][n // 2:]]))
+    tk, cn = table.make_table(18, (k + 15) // 16, dev)
+    assert int(cuda_table.table_insert(tk, cn, *first)[1]) == 0
+    a, b = (tk.clone(), cn.clone()), (tk.clone(), cn.clone())
+    pk, nk = cuda_table.table_insert(*a, *second)
+    pp, np_ = cuda_table.table_insert_plain(*b, *second)
+    torch.cuda.synchronize()
+    assert int(nk) == int(np_) == 0 and not pk.any() and not pp.any()
+    assert torch.equal(_check_table_invariants(*a), _check_table_invariants(*b))
+    assert int(a[1].sum()) == int(first[1].sum()) + int(second[1].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amount", [False, True])
+def test_t1_poly_a_one_slot(dev, amount):
+    """Every lane on one key: the atomics serialise, the total is exact."""
+    from kaarme_tpu_torch.ops import cuda_table, table, windows
+
+    k, n = 51, 1 << 20
+    keys, valid, h = windows.windows_with_hash(torch.zeros((1, n + k - 1), dtype=torch.int32,
+                                                           device=dev), k)
+    amt = torch.full((n,), 3, dtype=torch.int32, device=dev) if amount else None
+    tk, cn = table.make_table(10, 4, dev)
+    pend, npend = cuda_table.table_insert(tk, cn, keys, valid, h, amt)
+    assert int(npend) == 0 and int((cn > 0).sum()) == 1
+    assert int(cn.sum()) == n * (3 if amount else 1)
+    assert not tk[cn > 0].any()                     # poly-A is the all-zero key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["kernel", "plain"])
+@pytest.mark.parametrize("k", [13, 51, 201])
+def test_t1_overfull_invariants(dev, k, fn):
+    """2^8 slots, max_probes=8, amounts 1-5: stored + pending == input
+    per key; pending counted exactly; no key in two slots."""
+    from kaarme_tpu_torch.ops import cuda_table, table
+
+    keys, valid, h = _table_keys(4000, k, seed=k, dev=dev)
+    g = torch.Generator(device=dev).manual_seed(k)
+    amt = torch.randint(1, 6, valid.shape, generator=g, device=dev, dtype=torch.int32)
+    tk, cn = table.make_table(8, len(keys), dev)
+    run = cuda_table.table_insert if fn == "kernel" else cuda_table.table_insert_plain
+    pend, npend = run(tk, cn, keys, valid, h, amt, max_probes=8)
+    assert int(npend) == int(pend.sum()) > 0 and not (pend & ~valid).any()
+    rows = _check_table_invariants(tk, cn, 8)
+    W = len(keys)
+
+    def totals(cols, a):
+        uk, inv = torch.unique(torch.stack([sortcount.i32(c) for c in cols]), dim=1,
+                               return_inverse=True)
+        return uk, torch.zeros(uk.shape[1], dtype=torch.int64, device=dev).index_add_(
+            0, inv, a.long())
+
+    want = totals([x[valid] for x in keys], amt[valid])
+    got = totals([torch.cat([r, sortcount.i32(x[pend])]) for r, x in zip(rows[:W], keys)],
+                 torch.cat([rows[W], amt[pend]]))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_t1_plain_rounds_on_card_never_tear_rows(dev):
+    """The plain rounds on a CUDA tensor with hundreds of distinct W=13
+    keys on one slot hash, twice: with one elected writer per slot no
+    row is torn, so no key ends up in two slots."""
+    from kaarme_tpu_torch.ops import cuda_table, table
+
+    keys, valid, _ = _table_keys(400, 201, seed=3, dev=dev)
+    h = torch.full(valid.shape, 5, dtype=torch.int64, device=dev)
+    tk, cn = table.make_table(14, len(keys), dev)
+    for _ in range(2):
+        _, npend = cuda_table.table_insert_plain(tk, cn, keys, valid, h, max_probes=512)
+        assert int(npend) == 0
+    rows = _check_table_invariants(tk, cn, 512, lambda keys: torch.full_like(keys[0], 5))
+    assert rows.shape[1] > 100
+    assert int(rows[-1].sum()) == 2 * int(valid.sum())
+
+
+@pytest.mark.cuda
+def test_table_counter_grows_on_card_as_plain(dev):
+    """Forced growth (migration through T1 with amount = stored count):
+    kernels == plain, grow events equal."""
+    from kaarme_tpu_torch.models.counter import CounterConfig, KmerCounter
+
+    codes = np.random.default_rng(8).integers(0, 4, 5000).astype(np.uint8)
+    out = []
+    for kernels in ("cuda", "plain"):
+        c = KmerCounter(CounterConfig(k=21, min_slots=256, tile=256, batch_tiles=4,
+                                      kernels=kernels, min_abundance=1)).count_codes(codes)
+        tk, cn = c.dump()
+        order = np.lexsort(tk.T[::-1])
+        out.append((tk[order].tolist(), cn[order].tolist(), c.stats["grow_events"]))
+    assert out[0] == out[1] and out[0][2] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [["-s", "100000"], ["-b", "-u", "100000"]],
+                         ids=["table", "table_bloom"])
+def test_table_cli_kernels_equal_plain_route(dev, tmp_path, extra):
+    from kaarme_tpu_torch.ops import cuda_table, cuda_winkeys
+
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 30_000)
+    starts = rng.integers(0, 30_000 - 150, 2000)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "r.fa", "wb") as f:
+        for i, s0 in enumerate(starts):
+            f.write(b">r%d\n%s\n" % (i, lut[genome[s0:s0 + 150]].tobytes()))
+    a, b = tmp_path / "k.txt", tmp_path / "p.txt"
+    argv = [str(tmp_path / "r.fa"), "31", "-a", "1", "-q", "--backend", "table"] + extra
+    cuda_table.table_insert.launches = cuda_winkeys.window_keys.launches = 0
+    assert cli.main(argv + ["-o", str(a)]) == 0
+    assert cuda_table.table_insert.launches > 0 and cuda_winkeys.window_keys.launches > 0
+    cuda_table.table_insert.launches = cuda_winkeys.window_keys.launches = 0
+    assert cli.main(argv + ["-o", str(b), "--kernels", "plain"]) == 0
+    assert cuda_table.table_insert.launches == cuda_winkeys.window_keys.launches == 0
+    assert sorted(a.read_bytes().splitlines()) == sorted(b.read_bytes().splitlines())
+    if "-b" not in extra:
+        counts = [int(ln.split()[1]) for ln in a.read_bytes().splitlines()]
+        assert sum(counts) == 2000 * (150 - 31 + 1)

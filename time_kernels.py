@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one card, in turns, on chip_smoke's inputs.
 
-    python3 time_kernels.py --kernel k1|k2|k3|k4|k5 OTHER_ROOT [--reps 5]
+    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|table OTHER_ROOT [--reps 5]
 
 Run from the repository root.  Times a kernel of this checkout and of the
 checkout at OTHER_ROOT (for example the parent commit, unpacked with
@@ -21,7 +21,14 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
   after one superstep (2^23 rows) merged with the next superstep's sorted
   window keys, k=51 embedded and k=13 separate count, whose inputs come
   from the plain versions;
-- k5: ``cuda_skm.run_rows_slotted`` at S=96.
+- k5: ``cuda_skm.run_rows_slotted`` at S=96;
+- table: not one kernel but the probe-table route around T1: a
+  ``KmerCounter`` (k=51, ``min_slots`` 8,000,000, the CLI's table
+  configuration) counting chip_smoke's full-size FASTA (4.6 Mb genome,
+  150 bp reads at 30x, written once and shared by the four processes);
+  ``ms`` holds the median milliseconds of ``count_file`` (wall) and of
+  its device steps (``stats["build_seconds"]``), the digest is the
+  sorted dump's.
 
 Where a checkout's K1, K3 or K5 takes codes (before its chunk-input
 kernel), the timed call is ``sortcount.codes_from_chunk`` followed by it,
@@ -41,6 +48,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CAP = 1 << 23
@@ -163,6 +171,30 @@ def k2_calls(cs, dev):
         "classic_k13_full_sum": lambda: cuda_compact.segsum_compact(ckeys, ccnt, out_len=CAP)}
 
 
+def table_worker(root: str, reps: int) -> dict:
+    """The table route's count of the shared FASTA (``table`` above)."""
+    import statistics
+    import time
+
+    import numpy as np
+    from kaarme_tpu_torch.models.counter import CounterConfig, KmerCounter
+
+    path = os.environ["KT_TABLE_FASTA"]
+    walls, steps = [], []
+    for _ in range(reps + 1):           # the first run warms up
+        t0 = time.perf_counter()
+        counter = KmerCounter(CounterConfig(k=51, min_slots=8_000_000)).count_file(path)
+        walls.append(time.perf_counter() - t0)
+        steps.append(counter.stats["build_seconds"])
+    tk, cn = counter.dump()
+    order = np.lexsort(tk.T[::-1])
+    return dict(root=root, api="KmerCounter.count_file, k=51",
+                ms={"count_wall": statistics.median(walls[1:]) * 1e3,
+                    "device_steps": statistics.median(steps[1:]) * 1e3},
+                digest={"table_k51": [int(tk[order].astype(np.int64).sum()),
+                                      int((cn[order] * np.arange(1, cn.shape[0] + 1)).sum())]})
+
+
 def worker(kernel: str, root: str, reps: int) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -171,6 +203,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
     cs = chip_smoke()
     dev = torch.device("cuda", 0)
     _build.lib()
+    if kernel == "table":
+        return table_worker(root, reps)
     api, calls = {"k1": k1_calls, "k2": k2_calls, "k3": k3_calls, "k4": k4_calls,
                   "k5": k5_calls}[kernel](cs, dev)
     out = dict(root=root, api=api, ms={}, digest={})
@@ -187,7 +221,7 @@ def worker(kernel: str, root: str, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "table"), required=True)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -195,17 +229,23 @@ def main() -> int:
         print(json.dumps(worker(a.kernel, a.other, a.reps)))
         return 0
     other = os.path.abspath(a.other)
-    print(chip_smoke().sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    cs = chip_smoke()
+    print(cs.sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
     out = []
-    for root in (other, HERE, HERE, other):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), root, "--kernel",
-                              a.kernel, "--reps", str(a.reps), "--worker"],
-                             capture_output=True, text=True, cwd=root)
-        if res.returncode:
-            print(res.stdout + res.stderr, file=sys.stderr)
-            return 1
-        out.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        print(json.dumps(out[-1]))
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ)
+        if a.kernel == "table":
+            env["KT_TABLE_FASTA"] = os.path.join(tmp, "reads.fa")
+            cs.write_reads_fasta(env["KT_TABLE_FASTA"], 4_600_000, 30)
+        for root in (other, HERE, HERE, other):
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), root, "--kernel",
+                                  a.kernel, "--reps", str(a.reps), "--worker"],
+                                 capture_output=True, text=True, cwd=root, env=env)
+            if res.returncode:
+                print(res.stdout + res.stderr, file=sys.stderr)
+                return 1
+            out.append(json.loads(res.stdout.strip().splitlines()[-1]))
+            print(json.dumps(out[-1]))
     same = len({json.dumps(r["digest"], sort_keys=True) for r in out}) == 1
     print(json.dumps({"kernel": a.kernel,
                       "other_ms": [out[0]["ms"], out[3]["ms"]],
