@@ -69,7 +69,21 @@ Run from the repository root.  It builds the port's CUDA kernels from
    the classic k=13 file, counts summing to the valid windows) and
    ``-b -u 5000000 -a 2`` (== the skm route's ``-b`` file), T1 launched
    once per batch (and twice per grow event), K3 once per batch (and
-   per Bloom pass-1 batch and grow event).
+   per Bloom pass-1 batch and grow event);
+9. the sharded counters (``kaarme_tpu_torch/parallel``, ``--devices``)
+   on the same full-size file through the library, sized as the CLI
+   sizes ``--devices N -s 8000000 -a 1``, with N shards on cuda:0 (the
+   real routing, record exchange and kernels on every shard): k=51 skm
+   on 2 and on 4 shards and k=51 classic ``--compactor merge`` on 2 (==
+   the skm route's file), k=13 classic on 4 (== the classic k=13 file,
+   counts summing to the valid windows), the k=51 probe table on 2 (==
+   the skm route's file once sorted); each with its count, exchange,
+   write and wall times, peak device memory, rounds, replays, grow
+   events and distinct records per shard, and its launch counters (K5,
+   or K3 and K4, once per shard step; T1 per shard per batch and grow);
+   a checkpoint saved mid-stream on 4 shards and resumed on 2 (== the
+   uninterrupted run), and the CLI's ``--devices 2`` on a one-card
+   machine exiting 1 with "need 2 devices".
 
 Each kernel phase also computes the kernel's bound at its shape: the
 least time the card could take, each input byte read once and each
@@ -1285,12 +1299,176 @@ def phase_full(tmp):
         check_launches(counter, launches, label, route, bloom=True)
         del counter
         same_file(out("ge2"), out(name), f"k={K} {name} -a 2 == -a 1 without count-1 lines")
-    return {"skm_dense": skm_launches["skm_dense"],
-            "segsum_compact": skm_launches["segsum_compact"],
-            "window_keys": classic_launches["window_keys"],
-            "merge_compact": merge_launches["merge_compact"],
-            "skm_slotted": slotted_launches["skm_slotted"],
-            "table_insert": table_runs(path, out, n_reads, distinct)}
+    launches = {"skm_dense": skm_launches["skm_dense"],
+                "segsum_compact": skm_launches["segsum_compact"],
+                "window_keys": classic_launches["window_keys"],
+                "merge_compact": merge_launches["merge_compact"],
+                "skm_slotted": slotted_launches["skm_slotted"],
+                "table_insert": table_runs(path, out, n_reads, distinct)}
+    files = {"input": path, "skm": out("skm"), "k13": out("k13"), "n_reads": n_reads}
+    return launches, files
+
+
+def sharded_kwargs(path: str, k: int, ndev: int, extra=()):
+    """The sharded counter's configuration as the CLI sizes ``--devices
+    ndev`` for this file at ``-s 8000000 -a 1``; returns (pipeline,
+    keyword arguments)."""
+    from kaarme_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        [path, str(k), "-s", "8000000", "-a", "1", "-q", "--devices", str(ndev), *extra])
+    err = cli.validate(args)
+    if err:
+        raise AssertionError(f"sharded sizing k={k} --devices {ndev}: {err}")
+    return args.pipeline, cli.sharded_config_kwargs(args)
+
+
+def sharded_run(make, path: str, out_path: str, label: str, uses):
+    """Phase 9's one run: count the full-size file on ``make()``'s shards,
+    finalize (the exchange) and write, with every launch counter set to 0
+    just before and read just after; fails if a kernel of ``uses`` was
+    not launched.  Prints the times, memory, rounds and the balance.
+    Returns (counter, launches)."""
+    import torch
+
+    fns = launch_counters()
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counter = make()
+    counter.count_file(path)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    table = not hasattr(counter, "finalize_exchange")
+    if not table:
+        counter.finalize_exchange()
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counter.write_output(out_path)
+    t3 = time.perf_counter()
+    launches = {name: f.launches for name, f in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    skipped = [u for u in uses if launches[u] < 1]
+    if skipped:
+        raise AssertionError(f"{label}: the path launched no {skipped}: {launches}")
+    st = counter.stats
+    if table:
+        shards = [int((cn > 0).sum()) for _, cn in counter.tables]
+        steps = (f"batches {st['batches']}, grow events {st['grow_events']}, occupancy "
+                 f"{counter.occupancy()}")
+    else:
+        shards = list(counter._nd)
+        steps = (f"rounds {st['batches']} (+{st['replayed_rounds']} replayed), grow events "
+                 f"{st['grow_events']}, slot-grow events {st.get('slot_grow_events', '-')}")
+    print(f"sharded {label}: count {t1 - t0:.3f} s "
+          f"({st['windows_processed'] / (t1 - t0):.0f} windows/s), finalize/exchange "
+          f"{t2 - t1:.3f} s, write {t3 - t2:.3f} s, wall {t3 - t0:.3f} s, peak device memory "
+          f"{peak} bytes; {steps}; distinct per shard {shards}; launches {launches}")
+    return counter, launches
+
+
+def phase_sharded(files: dict):
+    """Phase 9: the sharded counters (``kaarme_tpu_torch/parallel``) on the
+    full-size file, 2 and 4 shards on cuda:0 (the real routing, exchange
+    and kernels on every shard), sized as the CLI sizes ``--devices``;
+    each count file == the single-device route's; a checkpoint saved
+    mid-stream on 4 shards and resumed on 2 == the uninterrupted run; the
+    CLI's --devices 2 on one card exits 1."""
+    import torch
+
+    from kaarme_tpu_torch import parallel
+    from kaarme_tpu_torch.io import reader as io_reader
+
+    dev = torch.device("cuda", 0)
+    path, tmp = files["input"], os.path.dirname(files["input"])
+    out = lambda name: os.path.join(tmp, name + ".txt")
+    for ndev in (2, 4):
+        _, kw = sharded_kwargs(path, K, ndev)
+        label = f"k={K} skm on {ndev} shards"
+        counter, launches = sharded_run(
+            lambda: parallel.ShardedSkmCounter(parallel.ShardedSkmConfig(**kw), (dev,) * ndev),
+            path, out(f"sharded_skm{ndev}"), label, ("skm_slotted", "segsum_compact"))
+        st = counter.stats
+        if launches["skm_slotted"] != ndev * (st["batches"] + st["replayed_rounds"]):
+            raise AssertionError(f"{label}: K5 launched {launches['skm_slotted']} times")
+        del counter
+        same_file(files["skm"], out(f"sharded_skm{ndev}"), f"{label} == skm")
+
+    _, kw = sharded_kwargs(path, K, 2, ["--pipeline", "classic", "--compactor", "merge"])
+    label = f"k={K} classic --compactor merge on 2 shards"
+    counter, launches = sharded_run(
+        lambda: parallel.ShardedSortCounter(parallel.ShardedSortConfig(**kw), (dev,) * 2),
+        path, out("sharded_merge2"), label, ("window_keys", "merge_compact", "segsum_compact"))
+    st = counter.stats
+    steps = 2 * (st["batches"] + st["replayed_rounds"])
+    if launches["window_keys"] != steps or launches["merge_compact"] != steps:
+        raise AssertionError(f"{label}: K3 {launches['window_keys']}, K4 "
+                             f"{launches['merge_compact']} launches for {steps} shard steps")
+    del counter
+    same_file(files["skm"], out("sharded_merge2"), f"{label} == skm")
+
+    _, kw = sharded_kwargs(path, 13, 4)
+    label = "k=13 classic on 4 shards"
+    counter, launches = sharded_run(
+        lambda: parallel.ShardedSortCounter(parallel.ShardedSortConfig(**kw), (dev,) * 4),
+        path, out("sharded_k13"), label, ("window_keys", "segsum_compact"))
+    st = counter.stats
+    if launches["window_keys"] != 4 * (st["batches"] + st["replayed_rounds"]):
+        raise AssertionError(f"{label}: K3 launched {launches['window_keys']} times")
+    total = int(counter.dump()[1].sum())
+    if total != files["n_reads"] * (150 - 13 + 1):
+        raise AssertionError(f"{label}: sum of counts {total} != valid windows")
+    print(f"sharded {label}: sum of counts {total} == valid windows")
+    del counter
+    same_file(files["k13"], out("sharded_k13"), f"{label} == classic")
+
+    label = f"k={K} probe table on 2 shards"
+    counter, launches = sharded_run(
+        lambda: parallel.ShardedKmerCounter(parallel.ShardedCounterConfig(
+            k=K, min_slots=8_000_000, min_abundance=1), (dev,) * 2),
+        path, out("sharded_table2"), label, ("window_keys", "table_insert"))
+    st = counter.stats
+    if (launches["window_keys"], launches["table_insert"]) != (
+            2 * st["batches"], 2 * (st["batches"] + st["grow_events"])):
+        raise AssertionError(f"{label}: K3 {launches['window_keys']}, T1 "
+                             f"{launches['table_insert']} launches for {st['batches']} batches")
+    del counter
+    same_counts(files["skm"], out("sharded_table2"), f"{label} == skm")
+
+    # a checkpoint mid-stream on 4 shards, resumed on 2
+    chunks = list(io_reader.CodeChunkReader(path))
+    half = len(chunks) // 2
+    ck = os.path.join(tmp, "sharded.npz")
+    _, kw4 = sharded_kwargs(path, K, 4)
+    c = parallel.ShardedSkmCounter(parallel.ShardedSkmConfig(**kw4), (dev,) * 4)
+    for codes in chunks[:half]:
+        c.add_codes(codes)
+    c.save(ck)
+    del c
+    _, kw2 = sharded_kwargs(path, K, 2)
+    c = parallel.ShardedSkmCounter.load(ck, parallel.ShardedSkmConfig(**kw2), (dev,) * 2)
+    for codes in chunks[half:]:
+        c.add_codes(codes)
+    c.finish()
+    c.write_output(out("sharded_resumed"))
+    del c, chunks
+    same_file(out("sharded_skm4"), out("sharded_resumed"),
+              f"k={K} skm saved on 4 shards after {half} of the input's chunks, resumed on 2, "
+              "== the uninterrupted 4-shard run")
+
+    # the CLI asks for one card per shard: --devices 2 on one card exits 1
+    res = subprocess.run([sys.executable, "-m", "kaarme_tpu_torch.cli", path, str(K), "-s",
+                          "8000000", "-q", "--devices", "2", "-o", out("cli_devices2")],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    have = torch.cuda.device_count()
+    if res.returncode != 1 or f"need 2 devices, have {have}" not in res.stderr \
+            or os.path.exists(out("cli_devices2")):
+        raise AssertionError(f"CLI --devices 2 on {have} card(s): exit {res.returncode}, "
+                             f"{res.stderr.strip()!r}")
+    print(f"CLI --devices 2 on {have} card: exit 1, {res.stderr.strip()!r}")
 
 
 def main() -> int:
@@ -1338,7 +1516,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase_small(tmp)
-        launches = phase_full(tmp)
+        launches, files = phase_full(tmp)
+        torch.cuda.empty_cache()
+        phase_sharded(files)
     leaked = [m for m in sys.modules if m in ("jax", "kaarme_tpu") or m.startswith("kaarme_tpu.")]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")

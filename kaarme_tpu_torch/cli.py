@@ -8,12 +8,14 @@ hand-written kernels; ``plain``: their plain PyTorch versions).
     python -m kaarme_tpu_torch.cli INPUT KLEN -s SLOTS [-m MODE] [-a MINABU]
                                    [-t THREADS] [-o OUT] [--device cuda|cpu]
 
-Every single-device route is ported: on the sort backend the
-super-k-mer pipeline (k >= 16) and the classic pipeline (``--pipeline
-classic``, the only route for k < 16), with ``--compactor merge`` (the
-linear run merge) on the classic one; the probe table (``--backend
-table``); and the two-pass Bloom prefilter (``-b -u U [-f FPR]``) on
-each.  ``--devices`` > 1 is refused with a "not yet ported" error.
+Every route is ported: on the sort backend the super-k-mer pipeline
+(k >= 16) and the classic pipeline (``--pipeline classic``, the only
+route for k < 16), with ``--compactor merge`` (the linear run merge) on
+the classic one; the probe table (``--backend table``); the two-pass
+Bloom prefilter (``-b -u U [-f FPR]``) on each; and ``--devices N`` (a
+power of two) on the sort backend, N shards on N cards, or on N CPU
+shards with ``--device cpu`` (``parallel/``).  As in the JAX CLI,
+``--devices`` refuses ``--backend table`` and ``-b``.
 """
 
 from __future__ import annotations
@@ -128,8 +130,6 @@ def validate(args) -> str:
     err = _validate_reference(args)
     if err:
         return err
-    if args.devices > 1:
-        return "--devices > 1 (multi-device counting) is not yet ported"
     if args.compactor not in ("auto", "merge"):
         return (f"--compactor {args.compactor} is a JAX-package variant; the port takes "
                 "'auto' or 'merge' and picks kernels with --kernels cuda|plain")
@@ -150,6 +150,23 @@ def config_kwargs(args) -> dict:
                 device=args.device, kernels=args.kernels)
 
 
+def sharded_config_kwargs(args) -> dict:
+    """The sharded counters' configuration for validated CLI arguments
+    with ``--devices`` > 1: ``kaarme_tpu/cli.py``'s per-device sizing."""
+    from .ops.sortcount import next_store_size
+
+    est = max(os.path.getsize(args.INPUT), 1)
+    blog2 = max(10, min(22, (est // args.devices - 1).bit_length()))
+    # -s sizes the distinct store like the reference's table size;
+    # prefix_cap is PER SHARD, so split it (growth covers the rest)
+    cap = 1 << max(10, min(20, blog2))
+    if args.hash_tab_size:
+        cap = max(cap, next_store_size(-(-args.hash_tab_size // args.devices)))
+    return dict(k=args.KLEN, mode=args.hash_table_type, min_abundance=args.min_k_abu,
+                batch_windows=1 << blog2, prefix_cap=cap, compactor=args.compactor,
+                kernels=args.kernels)
+
+
 def run(argv=None):
     """Parse, count and write; returns (exit code, counter or None)."""
     args = build_parser().parse_args(argv)
@@ -163,6 +180,8 @@ def run(argv=None):
     from .models.counter import CounterConfig, KmerCounter
     from .models.skm_counter import SkmCounter, SkmCounterConfig
     from .models.sort_counter import SortCounterConfig, SortKmerCounter
+    from .parallel import (ShardedSkmConfig, ShardedSkmCounter, ShardedSortConfig,
+                           ShardedSortCounter, make_mesh)
     from .utils.device import resolve_device
 
     try:
@@ -190,13 +209,23 @@ def run(argv=None):
         else:
             print(f"    est. hash table size:   {args.hash_tab_size}")
         print(f"  output file:              {out}")
-        print(f"  device:                   {args.device} ({args.kernels} kernels)")
+        print(f"  device:                   {args.device} ({args.kernels} kernels)"
+              + (f", {args.devices} shards" if args.devices > 1 else ""))
 
     kw = config_kwargs(args)
     bloom = (args.unq_kmers, args.bfilter_fpr) if args.use_bfilter else None
     try:
-        resolve_device(args.device)
-        if args.backend == "table":
+        if args.devices > 1:
+            # one shard per device: N cards, or N CPU shards
+            try:
+                devices = make_mesh(args.devices, args.device)
+            except ValueError as e:
+                raise ValueError(f"--devices {args.devices}: {e}") from None
+            skw = sharded_config_kwargs(args)
+            counter = (ShardedSkmCounter(ShardedSkmConfig(**skw), devices)
+                       if args.pipeline == "skm"
+                       else ShardedSortCounter(ShardedSortConfig(**skw), devices))
+        elif args.backend == "table":
             table_kw = dict(k=args.KLEN, mode=args.hash_table_type,
                             min_abundance=args.min_k_abu, device=args.device,
                             kernels=args.kernels)
@@ -211,6 +240,7 @@ def run(argv=None):
             cfg = SortCounterConfig(compactor=args.compactor, **kw)
             counter = (bloom_counter.BloomSortCounter(cfg, *bloom) if bloom
                        else SortKmerCounter(cfg))
+        resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1, None

@@ -37,7 +37,7 @@ from ..ops.hashing import hash_words
 from ..utils import codec
 from ..utils.device import resolve_device
 from ..utils.mathutils import capacity_log2
-from .sort_counter import _format_lines, pack_chunk, to_device
+from .sort_counter import CountOutput, pack_chunk, to_device
 from .tiling import TileBatcher
 
 
@@ -75,7 +75,7 @@ class CounterConfig:
         return self.tile * self.batch_tiles
 
 
-class KmerCounter:
+class KmerCounter(CountOutput):
     """Streaming canonical k-mer counter on one device's probe table."""
 
     def __init__(self, config: CounterConfig):
@@ -170,40 +170,12 @@ class KmerCounter:
 
     # -- output ------------------------------------------------------------
 
-    def _clip(self, counts: np.ndarray) -> np.ndarray:
-        if self.cfg.mode == 0:
-            return counts & 0xFFFF  # uint16 wrap, reference plain table
-        return np.minimum(counts, 16383)  # 14-bit saturation, kaarme table
-
     def dump(self):
         """(kmers (N, W) uint32, counts (N,) int32) of occupied slots in
         slot order, *before* abundance filtering / clipping."""
         occ = self.counts > 0
         return (self.tkeys[occ].cpu().numpy().view(np.uint32),
                 self.counts[occ].cpu().numpy())
-
-    def as_dict(self) -> dict:
-        """{kmer string: clipped count >= min_abundance} — for tests."""
-        tk, cn = self.dump()
-        cn = self._clip(cn)
-        keep = cn >= self.cfg.min_abundance
-        names = codec.unpack_kmers(tk[keep], self.cfg.k) if keep.any() else []
-        return dict(zip(names, cn[keep].tolist()))
-
-    def write_output(self, path: str) -> int:
-        """Write `KMER COUNT` lines in slot order (comparisons must sort).
-        Returns #lines written."""
-        t0 = time.perf_counter()
-        tk, cn = self.dump()
-        cn = self._clip(cn)
-        keep = cn >= self.cfg.min_abundance
-        tk, cn = tk[keep], cn[keep]
-        n = tk.shape[0]
-        with open(path, "wb") as f:
-            if n:
-                f.write(_format_lines(tk, cn, self.cfg.k))
-        self.stats["write_seconds"] += time.perf_counter() - t0
-        return int(n)
 
     # -- queries -----------------------------------------------------------
 

@@ -28,7 +28,8 @@ import numpy as np
 
 from ..ops import cuda_skm, skm, sortcount
 from ..utils import codec
-from .sort_counter import SortCounterConfig, SortKmerCounter, _Step, live_rows_to_host
+from .sort_counter import (SortCounterConfig, SortKmerCounter, _Step, live_rows_to_host,
+                           sized_store)
 
 _JAX_SEGPACKS = ("pallas", "pallas_interpret", "dense_interpret", "xla")
 
@@ -129,7 +130,7 @@ class SkmCounter(SortKmerCounter):
         """One superstep in the configured layout; ``step.eff`` is the
         dense merge mass, or None on the slotted layout."""
         cfg = self.cfg
-        prefix_in = self._sized_prefix(self._eff_for_dispatch(n))
+        prefix_in = sized_store(self.prefix, self._eff_for_dispatch(n))
         if cfg.segpack == "slotted":
             eff = None
             rows, maxruns = skm.skm_segpack_step(

@@ -76,6 +76,18 @@ def live_rows_to_host(cols, nd: int, words: int):
     return keys[live], cnt[live]
 
 
+def sized_store(store, rows: int) -> tuple:
+    """Store columns sliced, or padded with dead rows, to ``rows`` rows."""
+    cur = store[0].shape[0]
+    if cur == rows:
+        return store
+    if cur > rows:
+        return tuple(c[:rows] for c in store)
+    last, dev = len(store) - 1, store[0].device
+    return tuple(torch.cat([c, sortcount.dead_fill(rows - cur, i == last, dev)])
+                 for i, c in enumerate(store))
+
+
 def pack_chunk(stream: np.ndarray, n: int):
     """The transfer chunk of an n-window span of codes (its n + k - 1
     codes): (2-bit packed words, separators, n, dense).  Separators ship
@@ -95,6 +107,58 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+class CountOutput:
+    """The output every counter shares, on its ``dump()`` (keys, counts
+    before filtering and clipping), ``cfg`` and ``stats``."""
+
+    def _clip(self, counts: np.ndarray) -> np.ndarray:
+        if self.cfg.mode == 0:
+            return counts & 0xFFFF        # uint16 wrap, reference plain table
+        return np.minimum(counts, 16383)  # 14-bit saturation, kaarme table
+
+    def as_dict(self) -> dict:
+        """{kmer string: clipped count >= min_abundance}."""
+        tk, cn = self.dump()
+        cn = self._clip(cn)
+        keep = cn >= self.cfg.min_abundance
+        names = codec.unpack_kmers(tk[keep], self.cfg.k) if keep.any() else []
+        return dict(zip(names, cn[keep].tolist()))
+
+    def write_output(self, path: str) -> int:
+        """`KMER COUNT` lines in the dump's order (sorted; the probe table's
+        is slot order, so comparisons sort).  Returns #lines written."""
+        t0 = time.perf_counter()
+        tk, cn = self.dump()
+        cn = self._clip(cn)
+        keep = cn >= self.cfg.min_abundance
+        tk, cn = tk[keep], cn[keep]
+        n = tk.shape[0]
+        with open(path, "wb") as f:
+            if n:
+                f.write(_format_lines(tk, cn, self.cfg.k))
+        self.stats["write_seconds"] += time.perf_counter() - t0
+        return int(n)
+
+
+class SortedOutput(CountOutput):
+    """``CountOutput`` plus ``find`` by binary search of a sorted dump."""
+
+    def find(self, kmers) -> list:
+        """Counts for query k-mer strings (0 if absent, -1 if malformed)."""
+        if isinstance(kmers, str):
+            kmers = [kmers]
+        tk, cn = self.dump()
+        packed = np.zeros((len(kmers), codec.words_per_kmer(self.cfg.k)), np.uint32)
+        ok = np.ones(len(kmers), bool)
+        for i, s in enumerate(kmers):
+            if len(s) != self.cfg.k or any(ch not in "ACGTacgt" for ch in s):
+                ok[i] = False
+                continue
+            packed[i] = codec.pack_kmer(codec.canonical(s.upper()))
+        out = self._clip(sortcount.lookup_sorted(tk, cn, packed))
+        return [int(c) if good else -1 for c, good in zip(out, ok)]
 
 
 @dataclasses.dataclass
@@ -140,7 +204,7 @@ class SortCounterConfig:
         return self.batch_windows * self.superbatch_batches
 
 
-class SortKmerCounter:
+class SortKmerCounter(SortedOutput):
     """Streaming counter: supersteps merged into a compacted distinct store."""
 
     def __init__(self, config: SortCounterConfig):
@@ -255,7 +319,7 @@ class SortKmerCounter:
         superstep."""
         cfg = self.cfg
         eb = sortcount.embed_bits(cfg.k)
-        prefix_in = self._sized_prefix(self._eff_for_dispatch(n))
+        prefix_in = sized_store(self.prefix, self._eff_for_dispatch(n))
         kw = dict(k=cfg.k, n=n, dense=dense, kernels=cfg.kernels, **self._superstep_kwargs())
         if cfg.compactor == "merge":
             new_prefix, ndv = sortcount.superstep_merged(packed_d, sep_d, prefix_in,
@@ -275,17 +339,6 @@ class SortKmerCounter:
         pipeline applies them at finalize expansion instead, where
         windows materialize."""
         return {}
-
-    def _sized_prefix(self, eff: int):
-        """The store sliced, or padded with dead rows, to ``eff`` rows."""
-        cur = self.prefix[0].shape[0]
-        if cur == eff:
-            return self.prefix
-        if cur > eff:
-            return tuple(c[:eff] for c in self.prefix)
-        last = len(self.prefix) - 1
-        return tuple(torch.cat([c, sortcount.dead_fill(eff - cur, i == last, self.device)])
-                     for i, c in enumerate(self.prefix))
 
     def _rows_overflow(self, vals, step: _Step) -> bool:
         """Subclass hook: replay and return True when a superstep's extra
@@ -331,7 +384,7 @@ class SortKmerCounter:
                 self.cfg.prefix_cap = new_eff
                 self.stats["grow_events"] += 1
             self.prefix = step.prefix_in   # pre-overflow store, still live
-            self.prefix = self._sized_prefix(new_eff)
+            self.prefix = sized_store(self.prefix, new_eff)
             self._replay_all(steps)
 
     def _merge(self):
@@ -339,11 +392,6 @@ class SortKmerCounter:
         self._drain()
 
     # -- output ------------------------------------------------------------
-
-    def _clip(self, counts: np.ndarray) -> np.ndarray:
-        if self.cfg.mode == 0:
-            return counts & 0xFFFF        # uint16 wrap, reference plain table
-        return np.minimum(counts, 16383)  # 14-bit saturation, kaarme table
 
     def _flush(self):
         """Treat the buffered input as the end of the stream (dump, find
@@ -363,42 +411,6 @@ class SortKmerCounter:
         """Store rows -> host (keys (N, words) uint32, counts int64),
         without flushing; rows with count 0 are dropped."""
         return live_rows_to_host(self.prefix, self.n_used, self.cfg.words)
-
-    def as_dict(self) -> dict:
-        tk, cn = self.dump()
-        cn = self._clip(cn)
-        keep = cn >= self.cfg.min_abundance
-        names = codec.unpack_kmers(tk[keep], self.cfg.k) if keep.any() else []
-        return dict(zip(names, cn[keep].tolist()))
-
-    def write_output(self, path: str) -> int:
-        """`KMER COUNT` lines, canonical k-mers in sorted order."""
-        t0 = time.perf_counter()
-        tk, cn = self.dump()
-        cn = self._clip(cn)
-        keep = cn >= self.cfg.min_abundance
-        tk, cn = tk[keep], cn[keep]
-        n = tk.shape[0]
-        with open(path, "wb") as f:
-            if n:
-                f.write(_format_lines(tk, cn, self.cfg.k))
-        self.stats["write_seconds"] += time.perf_counter() - t0
-        return int(n)
-
-    def find(self, kmers) -> list:
-        """Counts for query k-mer strings (0 if absent, -1 if malformed)."""
-        if isinstance(kmers, str):
-            kmers = [kmers]
-        tk, cn = self.dump()
-        packed = np.zeros((len(kmers), codec.words_per_kmer(self.cfg.k)), np.uint32)
-        ok = np.ones(len(kmers), bool)
-        for i, s in enumerate(kmers):
-            if len(s) != self.cfg.k or any(ch not in "ACGTacgt" for ch in s):
-                ok[i] = False
-                continue
-            packed[i] = codec.pack_kmer(codec.canonical(s.upper()))
-        out = self._clip(sortcount.lookup_sorted(tk, cn, packed))
-        return [int(c) if good else -1 for c, good in zip(out, ok)]
 
     # -- checkpoint / resume (the kaarme_tpu .npz format) --------------------
 

@@ -11,6 +11,7 @@ bits are exact by construction.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .sortcount import M32
@@ -53,3 +54,24 @@ def hash_words(words, seed: int = 0x9747B28C) -> torch.Tensor:
 def hash_words64(words, seed_lo: int = 0x9747B28C, seed_hi: int = 0x5BD1E995):
     """Two independent 32-bit hashes (the Bloom filter's root hash)."""
     return hash_words(words, seed_lo), hash_words(words, seed_hi)
+
+
+def hash_words_np(words, seed: int = 0x9747B28C) -> np.ndarray:
+    """NumPy mirror of ``hash_words`` as uint32 (host-side query routing
+    must agree bit for bit with the device hash)."""
+
+    def rotl(x, r):
+        return ((x << np.uint32(r)) | (x >> np.uint32(32 - r))).astype(np.uint32)
+
+    with np.errstate(over="ignore"):
+        h = np.full(np.asarray(words[0]).shape, seed, np.uint32)
+        for w in words:
+            kx = np.asarray(w, np.uint32) * np.uint32(_C1)
+            kx = rotl(kx, 15) * np.uint32(_C2)
+            h = rotl(h ^ kx, 13) * np.uint32(5) + np.uint32(_N)
+        h = h ^ np.uint32(4 * len(words))
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))

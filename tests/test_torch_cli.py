@@ -1,8 +1,10 @@
 """The PyTorch port's CLI: count files byte-identical to ``kaarme_tpu.cli``
-on the skm and classic routes and equal to it once sorted on the probe
-table (which writes slot order), ``--query`` on an unsorted dump, a
-clear error on multi-device counting (not yet ported), and no JAX
-anywhere in the port (a subprocess run and a source scan)."""
+on the skm and classic routes, single-device and ``--devices 8`` (CPU
+shards here), and equal to it once sorted on the probe table (which
+writes slot order), ``--query`` on an unsorted dump, the JAX CLI's
+refusals of ``--devices`` (with the table, with ``-b``, not a power of
+two) and no CPU run when the cards are missing, and no JAX anywhere in
+the port (a subprocess run and a source scan)."""
 
 import os
 import pathlib
@@ -176,13 +178,48 @@ def test_table_query_sorts_the_dump(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("extra,msg", [
     (["--devices", "2"], "--devices"),
+    (["--devices", "2", "--backend", "table"],
+     "--backend table does not support --devices; use the sort backend"),
+    (["--devices", "2", "-b", "-u", "4000"], "-b/--use-bfilter does not support --devices yet"),
+    (["--devices", "3", "--device", "cpu"], "device count must be a power of two, got 3"),
 ])
 def test_unported_routes_are_refused(tmp_path, capsys, extra, msg):
+    """--devices where the JAX CLI refuses it (the probe table, -b, a count
+    that is not a power of two) exits 1 with its message; on the default
+    device it needs one card per shard and, without them, exits 1
+    before counting: it never falls back to the CPU."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("this machine has two CUDA devices")
     p = _fasta(tmp_path)
     size = [] if "-u" in extra else ["-s", "4096"]
-    assert cli.main([str(p), "31"] + size + extra + ["--device", "cpu"]) == 1
+    out = tmp_path / "x.out"
+    assert cli.main([str(p), "31"] + size + extra + ["-o", str(out)]) == 1
     err = capsys.readouterr().err
-    assert msg in err and "not yet ported" in err
+    assert msg in err and not out.exists()
+    if extra == ["--devices", "2"]:
+        assert f"need 2 devices, have {torch.cuda.device_count()}" in err
+
+
+@pytest.mark.parametrize("k,extra,seed,n", [
+    (9, [], 3, 2000), (21, ["--pipeline", "skm"], 9, 3000),
+    (13, ["--compactor", "merge"], 5, 2500), (31, ["-m", "0", "-a", "2"], 4, 3000)])
+def test_devices_count_file_byte_identical_to_reference(tmp_path, k, extra, seed, n):
+    """--device cpu --devices 8 (8 CPU shards) writes the JAX CLI's
+    --devices 8 count file byte for byte (tests/test_cli.py's inputs for
+    the classic and skm routes; the JAX CLI runs its default compactor)."""
+    rng = np.random.default_rng(seed)
+    seq = "".join("ACGT"[c] for c in rng.integers(0, 4, size=n))
+    p = tmp_path / "sample.fasta"
+    p.write_text(">r1\n" + "\n".join(seq[i:i + 70] for i in range(0, n, 70)) + "\n")
+    a, b = tmp_path / "port.out", tmp_path / "ref.out"
+    common = [str(p), str(k), "-s", "4096", "-q", "--devices", "8"]
+    common += [] if "-a" in extra else ["-a", "1"]
+    rc, counter = cli.run(common + extra + ["-o", str(a), "--device", "cpu"])
+    assert rc == 0 and counter.ndev == 8
+    assert type(counter).__name__ == ("ShardedSkmCounter" if k >= 16 else "ShardedSortCounter")
+    ref_extra = [x for x in extra if x not in ("--compactor", "merge")]
+    assert ref_cli.main(common + ref_extra + ["-o", str(b)]) == 0
+    assert a.read_bytes() == b.read_bytes()
 
 
 @pytest.mark.parametrize("compactor", ["xla", "merge_interpret"])
@@ -235,11 +272,12 @@ sys.meta_path.insert(0, _Block())
     (["31", "-b", "-u", "4000"], ""),
     (["31", "-s", "4096", "--histo", "h.txt", "--query"], "ACGTACGTACGTACGTACGTACGTACGTACG\n"),
     (["31", "-s", "4096", "--backend", "table", "--query"], "ACGTACGTACGTACGTACGTACGTACGTACG\n"),
-], ids=["skm", "classic_k13", "bloom", "histo_query", "table"])
+    (["13", "-s", "4096", "--devices", "2", "--query"], "ACGTACGTACGTA\n"),
+], ids=["skm", "classic_k13", "bloom", "histo_query", "table", "devices"])
 def test_port_run_imports_no_jax(tmp_path, extra, stdin):
     """Every module of the port imports, and the CLI runs (skm, classic
     k=13, -b -u, --histo with --query on stdin, the probe table with
-    --query), with jax and kaarme_tpu
+    --query, two CPU shards with --query), with jax and kaarme_tpu
     refused by the import system; neither ends up in sys.modules."""
     p = _fasta(tmp_path, n=1200)
     argv = [str(p)] + extra + ["-q", "--device", "cpu", "-o", str(tmp_path / "o.txt")]

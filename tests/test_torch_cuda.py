@@ -722,3 +722,43 @@ def test_table_cli_kernels_equal_plain_route(dev, tmp_path, extra):
     if "-b" not in extra:
         counts = [int(ln.split()[1]) for ln in a.read_bytes().splitlines()]
         assert sum(counts) == 2000 * (150 - 31 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["sort", "merge", "skm", "table"])
+def test_two_shards_on_one_card_equal_cpu_shards(dev, route):
+    """Two shards on cuda:0 (the kernels, the exchange as same-device
+    copies) equal two CPU shards (the plain versions), record for
+    record on every shard."""
+    from kaarme_tpu_torch import parallel
+
+    rng = np.random.default_rng(17)
+    genome = rng.integers(0, 4, 3000).astype(np.uint8)
+    starts = rng.integers(0, 2850, 400)
+    codes = np.concatenate([np.append(genome[s:s + 150], 4) for s in starts])
+    runs = {}
+    for devices in ((dev, dev), ("cpu", "cpu")):
+        if route == "table":
+            cfg = parallel.ShardedCounterConfig(k=31, min_slots=1 << 12, tile=1024,
+                                                batch_tiles=8, max_probes=16)
+            c = parallel.ShardedKmerCounter(cfg, devices).count_codes(codes)
+            tk, cn = c._host_table()
+            per = tk.shape[0] // 2
+            shards = []
+            for d in range(2):
+                occ = cn[d * per:(d + 1) * per] > 0
+                shards.append(sorted(zip(map(tuple, tk[d * per:(d + 1) * per][occ].tolist()),
+                                         cn[d * per:(d + 1) * per][occ].tolist())))
+            runs[devices[0]] = (shards, c.stats["grow_events"])
+            continue
+        kw = dict(k=31, batch_windows=1 << 13, prefix_cap=1 << 12)
+        if route == "skm":
+            c = parallel.ShardedSkmCounter(parallel.ShardedSkmConfig(skm_slots=16, **kw), devices)
+        else:
+            c = parallel.ShardedSortCounter(parallel.ShardedSortConfig(
+                compactor="merge" if route == "merge" else "auto", **kw), devices)
+        c.count_codes(codes)
+        shards = [(keys.tobytes(), cnt.tobytes()) for keys, cnt in c.shard_dumps()]
+        runs[devices[0]] = (shards, dict(c.stats, build_seconds=0, exchange_seconds=0,
+                                         write_seconds=0))
+    assert runs[dev] == runs["cpu"]
