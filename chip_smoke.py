@@ -83,7 +83,23 @@ Run from the repository root.  It builds the port's CUDA kernels from
    or K3 and K4, once per shard step; T1 per shard per batch and grow);
    a checkpoint saved mid-stream on 4 shards and resumed on 2 (== the
    uninterrupted run), and the CLI's ``--devices 2`` on a one-card
-   machine exiting 1 with "need 2 devices".
+   machine exiting 1 with "need 2 devices";
+10. multi-host counting (``kaarme_tpu_torch/parallel/multihost.py``) on
+   the same file, each run real processes (``subprocess``, each with a
+   timeout) that call the launcher (``multihost.run``, the body of its
+   ``main``) with jax and kaarme_tpu refused by the import system:
+   k=51 on two processes sharing cuda:0 over gloo (records staged
+   through pinned host memory; merged file == the skm route's, the
+   parts disjoint and summing to the distinct count, both processes on
+   one prefix cap and one count of grow events), k=51 at world size 1
+   on NCCL (== the skm route's), k=13 on two gloo processes (== the
+   classic k=13 file, counts summing to the valid windows), a
+   checkpoint saved by both processes halfway through their spans and
+   resumed (== the first run), and ``--num-processes 3`` exiting 1
+   before it connects; per process its start, count, exchange, write
+   and merge times, peak device memory, rounds, replays, grow events,
+   staged exchange bytes and launch counters (K3 once per shard step,
+   K2 once more for the exchange's compaction, K4 never).
 
 Each kernel phase also computes the kernel's bound at its shape: the
 least time the card could take, each input byte read once and each
@@ -1471,6 +1487,215 @@ def phase_sharded(files: dict):
     print(f"CLI --devices 2 on {have} card: exit 1, {res.stderr.strip()!r}")
 
 
+# One multi-host worker process: runs with jax and kaarme_tpu refused,
+# calls the launcher ("launch": ``multihost.run``) or counts its span in
+# two halves with a checkpoint between ("ckpt"), and prints one MHSTATS
+# line.  sys.argv: mode, then the launcher's arguments.
+MH_WORKER = r"""
+import importlib.abc, json, sys, time
+T0 = time.perf_counter()
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax.") or name == "kaarme_tpu" \
+                or name.startswith("kaarme_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+sys.meta_path.insert(0, _Block())
+import numpy as np
+import torch
+import torch.distributed as dist
+from kaarme_tpu_torch.ops import _build, cuda_compact, cuda_merge, cuda_winkeys
+from kaarme_tpu_torch.parallel import multihost as mh
+
+mode, argv = sys.argv[1], sys.argv[2:]
+_build.lib()
+torch.zeros(1, device="cuda")
+fns = {"window_keys": cuda_winkeys.window_keys, "segsum_compact": cuda_compact.segsum_compact,
+       "merge_compact": cuda_merge.merge_compact}
+for f in fns.values():
+    f.launches = 0
+torch.cuda.reset_peak_memory_stats()
+start_s = time.perf_counter() - T0
+t1 = time.perf_counter()
+steps, read_s, save_s, load_s = 0, 0.0, 0.0, 0.0
+if mode == "launch":
+    rc, c = mh.run(argv)
+    if rc:
+        sys.exit(rc)
+    written = sum(c._nd)
+else:
+    args = mh.build_parser().parse_args(argv)
+    mh.init_distributed(args.coordinator, args.num_processes, args.process_id,
+                        args.dist_backend)
+    mesh = mh.global_mesh(args.devices, "cuda")
+    cfg = lambda: mh.config(args, mesh.nproc * mesh.nloc)
+    t = time.perf_counter()
+    codes = mh.host_span_codes(args.INPUT, mesh.pid, mesh.nproc, args.KLEN)
+    read_s = time.perf_counter() - t
+    seps = np.flatnonzero(codes >= 4)          # cut after a separator
+    cut = int(seps[len(seps) // 2]) + 1
+    first = mh.MultiHostSortCounter(cfg(), mesh)
+    first.count_codes(codes[:cut])
+    t = time.perf_counter()
+    first.save(args.output_file + ".ckpt")
+    save_s = time.perf_counter() - t
+    steps = first.stats["batches"] + first.stats["replayed_rounds"]
+    del first
+    t = time.perf_counter()
+    c = mh.multihost_load(args.output_file + ".ckpt", cfg(), mesh)
+    load_s = time.perf_counter() - t
+    c.count_codes(codes[cut:])
+    c.finalize_exchange()
+    written = c.write_output_part(args.output_file)
+    dist.barrier(group=mesh.host_group)
+    if mesh.pid == 0:
+        mh.merge_parts(args.output_file, mesh.nproc)
+    dist.barrier(group=mesh.host_group)
+    dist.destroy_process_group()
+run_s = time.perf_counter() - t1
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "kaarme_tpu")]
+if bad:
+    sys.exit(f"the port imported {bad}")
+st = c.stats
+print("MHSTATS " + json.dumps({
+    "pid": c.pid, "nproc": c.nproc, "start_s": start_s, "run_s": run_s,
+    "count_s": st["build_seconds"], "exchange_s": st["exchange_seconds"],
+    "write_s": st["write_seconds"], "merge_s": st.get("merge_seconds", 0.0),
+    "read_s": read_s, "save_s": save_s, "load_s": load_s,
+    "peak": torch.cuda.max_memory_allocated(),
+    "steps": steps + st["batches"] + st["replayed_rounds"], "rounds": st["batches"],
+    "replays": st["replayed_rounds"], "grow_events": st["grow_events"],
+    "prefix_cap": c.cfg.prefix_cap, "written": written, "windows": st["windows_processed"],
+    "exchange_bytes": st["exchange_bytes"],
+    "launches": {name: f.launches for name, f in fns.items()}}), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mh_run(label: str, mode: str, nproc: int, argv, smi: str, timeout: float = 600):
+    """Start ``nproc`` multi-host workers (process ids 0..nproc-1) on
+    ``argv`` and wait for them; any worker that fails or times out fails
+    the phase (every worker is killed first).  Prints one line per
+    process and returns their MHSTATS objects, by process id."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MH_WORKER, mode, *argv, "--coordinator", f"localhost:{port}",
+         "--num-processes", str(nproc), "--process-id", str(pid)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for pid, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"multi-host {label}: process {pid} exited {p.returncode}:\n"
+                                 f"{so[-2000:]}\n{se[-4000:]}")
+    stats = [json.loads(next(ln for ln in so.splitlines() if ln.startswith("MHSTATS "))[8:])
+             for so, _ in outs]
+    for st in stats:
+        print(f"multi-host {label}, process {st['pid']}/{st['nproc']}: start {st['start_s']:.3f} s, "
+              f"count {st['count_s']:.3f} s ({st['windows'] / st['count_s']:.0f} windows/s), "
+              f"exchange {st['exchange_s']:.3f} s ({st['exchange_bytes']} bytes staged or sent), "
+              f"write {st['write_s']:.3f} s, merge {st['merge_s']:.3f} s"
+              + (f", span read {st['read_s']:.3f} s, save {st['save_s']:.3f} s, load "
+                 f"{st['load_s']:.3f} s (count: the resumed half)" if mode == "ckpt" else "")
+              + f", run {st['run_s']:.3f} s "
+              f"(pair wall {wall:.3f} s), peak device memory {st['peak']} bytes; rounds "
+              f"{st['rounds']} (+{st['replays']} replayed), grow events {st['grow_events']}, "
+              f"prefix cap {st['prefix_cap']}, records written {st['written']}; launches "
+              f"{st['launches']}; {smi}")
+    return stats
+
+
+def check_mh(label: str, stats, distinct=None):
+    """Every process: K3 once per shard step (one local shard), K2 once
+    more for the exchange's compaction, K4 never; one prefix cap and one
+    count of grow events; the parts' records sum to ``distinct``."""
+    for st in stats:
+        want = {"window_keys": st["steps"], "segsum_compact": st["steps"] + 1,
+                "merge_compact": 0}
+        if st["launches"] != want:
+            raise AssertionError(f"multi-host {label}: process {st['pid']} launches "
+                                 f"{st['launches']} != {want}")
+    if len({(st["prefix_cap"], st["grow_events"]) for st in stats}) != 1:
+        raise AssertionError(f"multi-host {label}: processes disagree on growth: "
+                             f"{[(st['prefix_cap'], st['grow_events']) for st in stats]}")
+    total = sum(st["written"] for st in stats)
+    if distinct is not None and total != distinct:
+        raise AssertionError(f"multi-host {label}: parts hold {total} records, not {distinct}")
+    print(f"multi-host {label}: K3 launched once per shard step "
+          f"({[st['steps'] for st in stats]}), K2 once more; prefix cap "
+          f"{stats[0]['prefix_cap']} and {stats[0]['grow_events']} grow events on every "
+          f"process; parts {[st['written'] for st in stats]} records")
+
+
+def phase_multihost(files: dict, smi: str):
+    """Phase 10: multi-host counting on the full-size file, real processes
+    on cuda:0 (docstring item 10)."""
+    import numpy as np
+
+    path, tmp = files["input"], os.path.dirname(files["input"])
+    out = lambda name: os.path.join(tmp, name + ".txt")
+    k51 = [path, str(K), "-s", "8000000", "-a", "1", "--batch-log2", "22", "--devices", "1"]
+    gloo = ["--dist-backend", "gloo", "--merge-parts"]
+
+    stats = mh_run(f"k={K}, 2 processes on gloo", "launch", 2,
+                   k51 + gloo + ["-o", out("mh_k51")], smi)
+    check_mh(f"k={K}, 2 processes on gloo", stats, DISTINCT_K51)
+    same_file(files["skm"], out("mh_k51"), f"k={K} multi-host, 2 processes on gloo == skm")
+
+    stats = mh_run(f"k={K}, world size 1 on NCCL", "launch", 1,
+                   k51 + ["--merge-parts", "-o", out("mh_nccl")], smi)
+    check_mh(f"k={K}, world size 1 on NCCL", stats, DISTINCT_K51)
+    same_file(files["skm"], out("mh_nccl"), f"k={K} multi-host, world size 1 on NCCL == skm")
+
+    argv = [path, "13", "-s", "8000000", "-a", "1", "--batch-log2", "22", "--devices", "1"]
+    stats = mh_run("k=13, 2 processes on gloo", "launch", 2,
+                   argv + gloo + ["-o", out("mh_k13")], smi)
+    check_mh("k=13, 2 processes on gloo", stats)
+    with open(out("mh_k13"), "rb") as f:
+        total = int(np.array(f.read().split()[1::2], dtype=np.int64).sum())
+    if total != files["n_reads"] * (150 - 13 + 1):
+        raise AssertionError(f"multi-host k=13: sum of counts {total} != valid windows")
+    print(f"multi-host k=13: sum of counts {total} == valid windows")
+    same_file(files["k13"], out("mh_k13"), "k=13 multi-host, 2 processes on gloo == classic")
+
+    stats = mh_run(f"k={K}, checkpoint halfway, 2 processes on gloo", "ckpt", 2,
+                   k51 + ["--dist-backend", "gloo", "-o", out("mh_ckpt")], smi)
+    check_mh(f"k={K}, checkpoint halfway", stats, DISTINCT_K51)
+    same_file(out("mh_k51"), out("mh_ckpt"),
+              f"k={K} multi-host saved halfway through each span and resumed == uninterrupted")
+
+    # 3 processes x 1 device: refused from the arguments, before connecting
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-m", "kaarme_tpu_torch.parallel.multihost", *k51, "--coordinator",
+         f"localhost:{free_port()}", "--num-processes", "3", "--process-id", "0",
+         "-o", out("mh_three")], capture_output=True, text=True, timeout=120, cwd=root)
+    msg = "device count must be a power of two, got 3 (3 processes x 1 devices)"
+    if res.returncode != 1 or msg not in res.stderr or os.path.exists(out("mh_three") + ".part0"):
+        raise AssertionError(f"multi-host --num-processes 3: exit {res.returncode}, "
+                             f"{res.stderr.strip()!r}")
+    print(f"multi-host --num-processes 3 --devices 1: exit 1, {res.stderr.strip()!r}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1519,6 +1744,8 @@ def main() -> int:
         launches, files = phase_full(tmp)
         torch.cuda.empty_cache()
         phase_sharded(files)
+        torch.cuda.empty_cache()
+        phase_multihost(files, smi)
     leaked = [m for m in sys.modules if m in ("jax", "kaarme_tpu") or m.startswith("kaarme_tpu.")]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")

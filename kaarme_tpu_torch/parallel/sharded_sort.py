@@ -210,7 +210,7 @@ class ShardedSortCounter(SortedOutput):
             vals = [v.tolist() for v in ndvs]
             if self._slots_overflow(vals, rnd):
                 continue
-            nd_max = max(v[1] for v in vals)
+            nd_max = self._global_max(max(v[1] for v in vals))
             cap = rnd.prefix_in[0][0].shape[0]
             if nd_max <= cap:
                 self._nd = [v[1] for v in vals]
@@ -238,6 +238,27 @@ class ShardedSortCounter(SortedOutput):
         k-mer records before the exchange."""
         return list(zip(self.prefix, self._nd))
 
+    def _global_max(self, x: int) -> int:
+        """Hook: the largest ``x`` over every process that counts with this
+        one (the identity in one process).  Every decision that leads to
+        a collective is taken on such a global value."""
+        return x
+
+    def _owners(self, cols, nshards: int) -> list:
+        """Owner shard (of ``nshards``) of each shard's records."""
+        w = codec.words_per_kmer(self.cfg.k)
+        owners = []
+        for rows, dev in zip(cols, self.devices):
+            with on_device(dev):
+                owners.append(owner_by_hash(rows[:w], nshards))
+        return owners
+
+    def _exchange(self, cols) -> list:
+        """Hook: send each shard's live records (``cols[s]``, the W key
+        columns and the count) to the shard that owns them; returns each
+        shard's received records (one process: device copies)."""
+        return exchange(cols, self._owners(cols, self.ndev), self.devices)
+
     def _retain(self, nd_max: int):
         """Grow the per-shard capacity to hold the largest received set,
         as the JAX package does after its exchange."""
@@ -252,15 +273,12 @@ class ShardedSortCounter(SortedOutput):
         if self._exchanged:
             return
         t0 = time.perf_counter()
-        w = codec.words_per_kmer(self.cfg.k)
-        cols, owners = [], []
+        cols = []
         for (store, nd), dev in zip(self._kmer_stores(), self.devices):
             with on_device(dev):
                 live = store[-1][:nd] > 0
-                rows = tuple(c[:nd][live] for c in store)
-                cols.append(rows)
-                owners.append(owner_by_hash(rows[:w], self.ndev))
-        recv = exchange(cols, owners, self.devices)
+                cols.append(tuple(c[:nd][live] for c in store))
+        recv = self._exchange(cols)
         self.prefix, self._nd = [], []
         for got, dev in zip(recv, self.devices):
             with on_device(dev):
@@ -268,7 +286,7 @@ class ShardedSortCounter(SortedOutput):
             nd = int(ndv[1])
             self.prefix.append(tuple(c[:nd] for c in store))
             self._nd.append(nd)
-        self._retain(max(self._nd))
+        self._retain(self._global_max(max(self._nd)))
         self._exchanged = True
         self.stats["exchange_seconds"] += time.perf_counter() - t0
 
