@@ -37,14 +37,18 @@ Run from the repository root.  It builds the port's CUDA kernels from
    must be dropped: kernel == plain (the unpack, then the plain
    segmentation), rows and max_tile_runs; and on a tail of no whole
    number of 512-window tiles;
-6. T1 (the atomic probe-table insert) against its plain version (the
-   probe rounds): one 2^20-window batch of the table route into a
+6. T1 (the atomic probe-table insert from K3's key columns: validity
+   and the murmur3 hash in the kernel, equal keys of a warp aggregated)
+   against its plain version (torch validity and ``hash_words``, then
+   the probe rounds): one 2^20-window batch of the table route into a
    2^23-slot table already holding the previous batches' keys at k=51
-   (W=4), k=13 (W=1) and k=201 (W=13), and a poly-A batch, as multisets
-   of occupied (key row, count) pairs with the table's invariants (no
-   key in two slots, lookup finds every stored key); overfull 2^8-slot
-   tables (max_probes=8) where stored + pending == input per key; its
-   time beside the plain version's and its bound;
+   (W=4), k=13 (W=1) and k=201 (W=13), a poly-A batch and an AC-repeat
+   batch, as multisets of occupied (key row, count) pairs with the
+   table's invariants (no key in two slots, lookup along the
+   ``hash_words`` chain finds every stored key, so the kernel's hash is
+   ``hash_words``); overfull 2^8-slot tables (max_probes=8) where stored
+   + pending == input per key; its time beside the plain version's, K3's
+   alone and its bound;
 7. the CLI end to end on small inputs (skm: k=31 and k=51, -m 0 and
    -m 2; classic: k=13, and k=31 with ``--compactor merge``) against a
    string-based golden count, and the slotted skm counter at S=8
@@ -69,7 +73,8 @@ Run from the repository root.  It builds the port's CUDA kernels from
    the classic k=13 file, counts summing to the valid windows) and
    ``-b -u 5000000 -a 2`` (== the skm route's ``-b`` file), T1 launched
    once per batch (and twice per grow event), K3 once per batch (and
-   per Bloom pass-1 batch and grow event);
+   per Bloom pass-1 batch and grow event), and no ``hash_words`` call
+   on the kernel runs without ``-b``;
 9. the sharded counters (``kaarme_tpu_torch/parallel``, ``--devices``)
    on the same full-size file through the library, sized as the CLI
    sizes ``--devices N -s 8000000 -a 1``, with N shards on cuda:0 (the
@@ -723,13 +728,13 @@ TABLE_LOG2 = 23                                   # -s 8000000
 def table_batch(codes, b: int, k: int):
     """Batch ``b`` of the table route over int32 codes (64 tiles of 2^14
     windows): its transfer chunk, and the route's step before T1 on it
-    (K3's window keys, validity and slot hashes, ``table.chunk_windows``)
-    as a function of no arguments returning (keys, valid, h)."""
-    from kaarme_tpu_torch.ops import table
+    (K3's key columns, ``sortcount.window_keys_from_chunk``) as a
+    function of no arguments returning the W columns."""
+    from kaarme_tpu_torch.ops import sortcount
 
     per = TABLE_TILE * TABLE_BATCH_TILES
     packed, seps, _ = chunk_of(codes[b * per: (b + 1) * per + k - 1])
-    return lambda: table.chunk_windows(packed, seps, k=k, n=per)
+    return lambda: sortcount.window_keys_from_chunk(packed, seps, k=k, n=per)
 
 
 def occupied_rows(tk, cn):
@@ -836,28 +841,34 @@ def cuda_ms_fresh(prepare, fn, reps: int = 5) -> float:
 
 
 def phase_t1(dev):
-    """T1 (the atomic table insert) against its plain version (the probe
-    rounds): one 2^20-window batch of the table route into a 2^23-slot
-    table that already holds the previous batches' keys, at k=51 (63
-    batches before it), k=13 and k=201 (7 before it), and a poly-A batch
-    (one key, every lane on one slot), as multisets of occupied (key row,
-    count) pairs, with the table's invariants; then overfull 2^8-slot
-    tables with max_probes=8 and amounts 1-5, where the pending sets may
-    differ: per key, stored count + pending amounts == input, no key in
-    two slots, every stored key found by lookup.  Times the kernel and the
-    plain version from the same table, with the bound: the inputs once,
-    plus each distinct 32 B sector of counts and key rows that the probe
-    chains touch, read once and written once where it changed."""
+    """T1 (the table insert from K3's key columns: validity and hash in
+    the kernel, equal keys aggregated per warp) against its plain version
+    (the torch validity and hash_words, then the probe rounds): one
+    2^20-window batch of the table route into a 2^23-slot table that
+    already holds the previous batches' keys, at k=51 (63 batches before
+    it), k=13 and k=201 (7 before it), a poly-A batch (one key, every
+    lane on one slot) and an AC-repeat batch (two keys in alternate
+    lanes), as multisets of occupied (key row, count) pairs, with the
+    table's invariants; then overfull 2^8-slot tables with max_probes=8
+    and amounts 1-5, where the pending sets may differ: per key, stored
+    count + pending amounts == input, no key in two slots, every stored
+    key found by lookup.  Times the kernel and the plain version from the
+    same table, with the bound: the key columns in and the pending bytes
+    out once, plus each distinct 32 B sector of counts and key rows that
+    the probe chains touch, read once and written once where it
+    changed."""
     import torch
-    from kaarme_tpu_torch.ops import cuda_table, table
+    from kaarme_tpu_torch.ops import cuda_table, hashing, sortcount, table
 
     per = TABLE_TILE * TABLE_BATCH_TILES
     out, err = {}, 0
-    for k, before in ((51, 63), (13, 7), (201, 7), ("polyA", 0)):
-        if k == "polyA":
+    for k, before in ((51, 63), (13, 7), (201, 7), ("polyA", 0), ("AC", 0)):
+        if k in ("polyA", "AC"):
+            codes = torch.zeros(per + K - 1, dtype=torch.int32, device=dev)
+            if k == "AC":
+                codes[1::2] = 1
+            label = f"{'poly-A' if k == 'polyA' else 'AC repeat'} k={K}"
             k = K
-            codes = torch.zeros(per + k - 1, dtype=torch.int32, device=dev)
-            label = f"poly-A k={k}"
         else:
             # reads of 300 bp at k=201 (the long-k shape), else 150 bp
             codes = read_stream(dev, 4_600_000, (before + 1) * per + k - 1,
@@ -866,17 +877,16 @@ def phase_t1(dev):
         W = (k + 15) // 16
         tk, cn = table.make_table(TABLE_LOG2, W, dev)
         for b in range(before):
-            keys, valid, h = table_batch(codes, b, k)()
-            if int(cuda_table.table_insert(tk, cn, keys, valid, h)[1]):
+            if int(cuda_table.table_insert(tk, cn, table_batch(codes, b, k)())[1]):
                 raise AssertionError(f"T1 {label}: pending windows while filling the table")
         step = table_batch(codes, before, k)
-        keys, valid, h = step()
-        # the route's window keys (K3) and hashes that feed T1
+        keys = step()
+        # the route's key columns (K3), all that feeds T1
         win_ms = cuda_ms(step)
         del codes, step
         fresh = lambda: (tk.clone(), cn.clone())
-        run = lambda t, c: cuda_table.table_insert(t, c, keys, valid, h)
-        run_plain = lambda t, c: cuda_table.table_insert_plain(t, c, keys, valid, h)
+        run = lambda t, c: cuda_table.table_insert(t, c, keys)
+        run_plain = lambda t, c: cuda_table.table_insert_plain(t, c, keys)
         tk_k, cn_k = fresh()
         pk, nk = run(tk_k, cn_k)
         tk_p, cn_p = fresh()
@@ -890,19 +900,19 @@ def phase_t1(dev):
         if e:
             raise AssertionError(f"T1 {label}: kernel != plain multiset (max abs err {e})")
         err = max(err, e)
+        valid = sortcount._is_sentinel_i32(keys) == 0
         n, nv = valid.shape[0], int(valid.sum())
         total = int(cn_k.to(torch.int64).sum()) - int(cn.to(torch.int64).sum())
         if total != nv:
             raise AssertionError(f"T1 {label}: counts grew by {total}, valid windows {nv}")
         ms = cuda_ms_fresh(fresh, run)
         plain_ms = cuda_ms_fresh(fresh, run_plain)
-        # the u32 key words, valid bytes and u32 hashes in, the pending
-        # bytes out, and the table's distinct sectors that the probe
-        # chains touch (read once, written once where changed); next to
-        # no arithmetic
-        tr = table_traffic(cn, tk_k, cn_k, keys, valid, h, 64)
+        # the u32 key words in, the pending bytes out, and the table's
+        # distinct sectors that the probe chains touch (read once,
+        # written once where changed); next to no arithmetic
+        tr = table_traffic(cn, tk_k, cn_k, keys, valid, hashing.hash_words(keys), 64)
         probes = tr["probes"]
-        nbytes = (4 * W + 1 + 4 + 1) * n + tr["bytes"]
+        nbytes = (4 * W + 1) * n + tr["bytes"]
         b = dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bound_bytes=nbytes,
                  bound_ops=0.0)
         out[label] = dict(ms=ms, plain_ms=plain_ms, windows_ms=win_ms, **b)
@@ -912,9 +922,9 @@ def phase_t1(dev):
               f"finds all; {probes} probes on {tr['slots']} distinct slots ({tr['count_sectors']} "
               f"count sectors, {tr['key_sectors']} key-row sectors, {tr['sectors_written']} "
               f"written); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{b['bound_ms']:.4f} ms (bytes: {nbytes}); the batch's window keys (K3) and "
-              f"hashes from its chunk {win_ms:.3f} ms")
-        del tk, cn, tk_k, cn_k, tk_p, cn_p, keys, valid, h, rk, rp
+              f"{b['bound_ms']:.4f} ms (bytes: {nbytes}); the batch's key columns (K3) from "
+              f"its chunk {win_ms:.3f} ms")
+        del tk, cn, tk_k, cn_k, tk_p, cn_p, keys, valid, rk, rp
         torch.cuda.empty_cache()
     t1_overfull(dev)
     main = out[f"k={K}"]
@@ -925,20 +935,26 @@ def phase_t1(dev):
                 k201_plain_ms=out["k=201"]["plain_ms"], k201_bound_ms=out["k=201"]["bound_ms"],
                 polya_ms=out[f"poly-A k={K}"]["ms"], polya_plain_ms=out[f"poly-A k={K}"]["plain_ms"],
                 polya_bound_ms=out[f"poly-A k={K}"]["bound_ms"],
+                ac_ms=out[f"AC repeat k={K}"]["ms"],
+                ac_plain_ms=out[f"AC repeat k={K}"]["plain_ms"],
+                ac_bound_ms=out[f"AC repeat k={K}"]["bound_ms"],
                 **{key: main[key] for key in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")})
 
 
 def t1_overfull(dev):
     """T1 and its plain version on 2^8-slot tables with max_probes=8 and
-    far more distinct keys than slots: the invariants on both."""
+    far more distinct keys than slots, from key columns laid out as K3
+    writes them (invalid windows all-ones): the invariants on both."""
     import torch
-    from kaarme_tpu_torch.ops import cuda_table, table, windows
+    from kaarme_tpu_torch.ops import cuda_table, sortcount, table, windows
 
     done = []
     for k in (13, K, 201):
         codes = read_stream(dev, 4_600_000, 5000 + k - 1, read_len=300, n_every=997)
         tiles = codes.unfold(0, 1000 + k - 1, 1000)
-        keys, valid, h = windows.windows_with_hash(tiles, k)
+        keys, valid, _ = windows.windows_with_hash(tiles, k)
+        rows = torch.stack(keys, 1).masked_fill(~valid[:, None], 0xFFFFFFFF)
+        keys = tuple(sortcount.i32(rows.T.contiguous()).unbind(0))
         g = torch.Generator(device=dev).manual_seed(SEED + k)
         amount = torch.randint(1, 6, valid.shape, generator=g, device=dev, dtype=torch.int32)
         want = key_totals([x[valid] for x in keys], amount[valid])
@@ -946,7 +962,7 @@ def t1_overfull(dev):
         for name, fn in (("kernel", cuda_table.table_insert),
                          ("plain", cuda_table.table_insert_plain)):
             tk, cn = table.make_table(8, W, dev)
-            pending, npend = fn(tk, cn, keys, valid, h, amount, max_probes=8)
+            pending, npend = fn(tk, cn, keys, amount=amount, max_probes=8)
             torch.cuda.synchronize()
             if int(npend) != int(pending.sum()) or not 0 < int(npend) < int(valid.sum()):
                 raise AssertionError(f"T1 overfull k={k} {name}: pending {int(npend)} vs mask "
@@ -1174,7 +1190,10 @@ def table_runs(path: str, out, n_reads: int, distinct: int):
     batch and grow on the kernel runs, neither on the plain one.  Returns
     T1's launches in the k=51 run."""
 
+    from kaarme_tpu_torch.ops import hashing
+
     def run(argv, label, plain=False):
+        hashing.hash_words.calls = 0
         counter, launches = run_full(argv + (["--kernels", "plain"] if plain else []), label,
                                      () if plain else ("table_insert", "window_keys"))
         st, t1, k3 = counter.stats, launches["table_insert"], launches["window_keys"]
@@ -1185,6 +1204,13 @@ def table_runs(path: str, out, n_reads: int, distinct: int):
             raise AssertionError(f"{label}: T1 launched {t1} times, K3 {k3}, for "
                                  f"{st['batches']} batches ({'and as many pass-1 batches, ' if bloom else ''}"
                                  f"{st['grow_events']} grow events)")
+        # T1 hashes in the kernel: no host hash on the count step (the -b
+        # gate's Bloom hashes and the plain route's hashes are torch ops)
+        calls = hashing.hash_words.calls
+        if not (plain or bloom) and calls:
+            raise AssertionError(f"{label}: the count step called hash_words {calls} times")
+        print(f"full size {label}: hash_words called {calls} times"
+              + ("" if plain or bloom else " (T1 hashes in the kernel)"))
         return counter, t1
 
     argv = [path, str(K), "-s", "8000000", "-a", "1", "-q", "--backend", "table"]

@@ -130,7 +130,7 @@ class KmerCounter(CountOutput):
         Windows that already landed stay counted; only the insert's own
         pending mask is retried, so nothing is double-counted."""
         cfg = self.cfg
-        keys, _, h = table_ops.chunk_windows(**chunk)
+        keys = sortcount.window_keys_from_chunk(**chunk)
         for _ in range(cfg.max_grows):
             self.stats["grow_events"] += 1
             self.cap_log2 += 1
@@ -139,13 +139,12 @@ class KmerCounter(CountOutput):
             old_tk, old_cn = self.tkeys, self.counts
             okeys = tuple(old_tk[:, w] for w in range(old_tk.shape[1]))
             new_tk, new_cn, _, n_mig = table_ops.insert(
-                new_tk, new_cn, okeys, old_cn > 0, hash_words(okeys), amount=old_cn,
-                max_probes=cfg.max_probes, kernels=cfg.kernels)
+                new_tk, new_cn, okeys, old_cn > 0, amount=old_cn, max_probes=cfg.max_probes,
+                kernels=cfg.kernels)
             if int(n_mig):
                 continue  # did not fit either: grow again
             new_tk, new_cn, pending, n_left = table_ops.insert(
-                new_tk, new_cn, keys, pending, h, max_probes=cfg.max_probes,
-                kernels=cfg.kernels)
+                new_tk, new_cn, keys, pending, max_probes=cfg.max_probes, kernels=cfg.kernels)
             self.tkeys, self.counts = new_tk, new_cn
             if int(n_left) == 0:
                 return

@@ -112,8 +112,8 @@ def _bind(lib):
     lib.kt_merge_compact.restype = _I32
     lib.kt_merge_compact_scratch.argtypes = [_I64, _I64, _I32]
     lib.kt_merge_compact_scratch.restype = _I64
-    lib.kt_table_insert.argtypes = [_P, _P, _I64, _I32, _P, _I64, _P, _P, _P, _I64, _I32, _P,
-                                    _P, _P]
+    lib.kt_table_insert.argtypes = [_P, _P, _I64, _I32, _P, _I64, _I64, _P, _P, _P, _I64, _I32,
+                                    _P, _P, _P]
     lib.kt_table_insert.restype = _I32
     return lib
 

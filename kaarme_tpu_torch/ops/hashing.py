@@ -41,7 +41,10 @@ def fmix32(h: torch.Tensor) -> torch.Tensor:
 
 
 def hash_words(words, seed: int = 0x9747B28C) -> torch.Tensor:
-    """murmur3_x86_32 over a sequence of W word columns of one shape."""
+    """murmur3_x86_32 over a sequence of W word columns of one shape.
+    ``hash_words.calls`` counts the calls (chip_smoke checks that the
+    probe table's count step makes none: T1 hashes in the kernel)."""
+    hash_words.calls += 1
     h = torch.full(words[0].shape, seed, dtype=torch.int64, device=words[0].device)
     for w in words:
         kx = _mul32(w.to(torch.int64) & M32, _C1)
@@ -49,6 +52,9 @@ def hash_words(words, seed: int = 0x9747B28C) -> torch.Tensor:
         h = _rotl(h ^ kx, 13)
         h = (_mul32(h, 5) + _N) & M32
     return fmix32(h ^ (4 * len(words)))
+
+
+hash_words.calls = 0
 
 
 def hash_words64(words, seed_lo: int = 0x9747B28C, seed_hi: int = 0x5BD1E995):

@@ -9,9 +9,10 @@ of its words (``ops/hashing.hash_words``), so occupancy and the grow
 policy mean what they mean in the JAX package.
 
 ``insert`` takes ``kernels``: ``"cuda"`` runs T1 (``cuda_table``: the
-atomic insert kernel on CUDA tensors, its plain version on CPU ones),
-``"plain"`` the plain version (the JAX package's probe rounds) on any
-device.  A full table does not abort: unresolved windows come back in
+atomic insert kernel on CUDA tensors, which derives validity and the
+slot hash from the key words itself; its plain version on CPU ones),
+``"plain"`` the plain version (the torch validity and hash, then the
+JAX package's probe rounds) on any device.  A full table does not abort: unresolved windows come back in
 ``pending`` and the counter grows the table and retries
 (models/counter.py).  ``lookup`` is plain PyTorch probe rounds: it
 serves ``find``, off the counting path.
@@ -20,9 +21,10 @@ The counting step takes a batch as its transfer chunk (2-bit words and
 separators, ``models/sort_counter.pack_chunk``), whose window keys K3
 makes as it does for the classic pipeline; an invalid window's key is
 all-ones in every word, which no canonical key is, so that is the
-validity mask.  Valid windows get the keys ``ops/windows`` gives the
-JAX package's code tiles (the same windows in the same order), so the
-plain insert places them as the JAX table does.
+validity mask, and the step hands T1 the key columns alone.  Valid
+windows get the keys ``ops/windows`` gives the JAX package's code tiles
+(the same windows in the same order), so the plain insert places them
+as the JAX table does.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ import torch
 
 from . import sortcount
 from .cuda_table import _tri, table_insert, table_insert_plain
-from .hashing import hash_words
 from .sortcount import M32, i32
 
 
@@ -42,10 +43,11 @@ def make_table(capacity_log2: int, words: int, device):
             torch.zeros((c,), dtype=torch.int32, device=device))
 
 
-def insert(tkeys, counts, keys, valid, h, amount=None, max_probes: int = 64,
+def insert(tkeys, counts, keys, valid=None, h=None, amount=None, max_probes: int = 64,
            kernels: str = "cuda"):
     """Insert/accumulate a batch of canonical k-mers (``cuda_table``'s
-    contract; the table is updated in place).  Returns (tkeys, counts,
+    contract: ``valid`` and ``h`` None are derived from the key words;
+    the table is updated in place).  Returns (tkeys, counts,
     pending, n_pending): pending marks the valid windows that did not
     land within ``max_probes`` probes, n_pending is their number as a
     0-d int32 tensor on the table's device (the kernel counts them as it
@@ -79,26 +81,17 @@ def lookup(tkeys, counts, keys, h, max_probes: int = 64) -> torch.Tensor:
     return out
 
 
-def chunk_windows(packed, sep, *, k: int, n: int, dense: bool = False,
-                  kernels: str = "cuda", bloom=None, hfn: int = 0):
-    """A batch's transfer chunk -> (keys: W int32 columns, valid (n,)
-    bool, h (n,) int64 slot hashes) of its n windows.  ``bloom``/``hfn``:
-    windows whose key misses the Bloom filter are invalid too
-    (``sortcount.window_keys_from_chunk``)."""
-    keys = sortcount.window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense,
-                                            kernels=kernels, bloom=bloom, hfn=hfn)
-    return keys, sortcount._is_sentinel_i32(keys) == 0, hash_words(keys)
-
-
 def count_step(tkeys, counts, packed, sep, *, k: int, n: int, dense: bool = False,
                max_probes: int = 64, kernels: str = "cuda", bloom=None, hfn: int = 0):
-    """One device step: a batch's transfer chunk -> canonical windows
-    (``chunk_windows``) -> insert.  Returns (tkeys, counts, n_overflow:
+    """One device step: a batch's transfer chunk -> its key columns (K3,
+    ``sortcount.window_keys_from_chunk``; ``bloom``/``hfn``: keys that
+    miss the Bloom filter come back all-ones too) -> insert (T1, which
+    derives validity and the slot hash from them).  Returns (tkeys, counts, n_overflow:
     0-d int32 tensor, pending): pending is the exact per-window
     unresolved mask, so a grow-and-retry re-inserts only what did not
     land."""
-    keys, valid, h = chunk_windows(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
-                                   bloom=bloom, hfn=hfn)
-    tkeys, counts, pending, n_pending = insert(tkeys, counts, keys, valid, h,
-                                               max_probes=max_probes, kernels=kernels)
+    keys = sortcount.window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
+                                            bloom=bloom, hfn=hfn)
+    tkeys, counts, pending, n_pending = insert(tkeys, counts, keys, max_probes=max_probes,
+                                               kernels=kernels)
     return tkeys, counts, n_pending, pending

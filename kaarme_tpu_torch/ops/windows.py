@@ -15,8 +15,9 @@ the int32 bit patterns the kernels take.  Invalid windows get keys too
 (the JAX package's, bit for bit); ``valid`` masks them.
 
 The counting routes do not call this module: the table route takes its
-windows from the transfer chunk through K3 (``ops/table.chunk_windows``),
-which gives every valid window the same key and hash.  It is the JAX
+windows from the transfer chunk through K3
+(``sortcount.window_keys_from_chunk``), which gives every valid window
+the same key, and T1 hashes it as ``hash_words`` does.  It is the JAX
 module's interface on code tiles, for library callers that hold codes.
 """
 

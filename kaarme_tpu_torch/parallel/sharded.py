@@ -194,9 +194,10 @@ class ShardedKmerCounter(CountOutput):
         pending = []
         for (tkeys, counts), got, dev in zip(self.tables, recv, self.devices):
             with on_device(dev):
-                valid = torch.ones(got[0].shape[0], dtype=torch.bool, device=dev)
+                # every record is a live key (never all-ones); the hash
+                # is the one that routed it
                 _, _, pend, n_pend = table_ops.insert(
-                    tkeys, counts, got[:w], valid, got[w + 1], amount=got[w],
+                    tkeys, counts, got[:w], None, got[w + 1], amount=got[w],
                     max_probes=self.cfg.max_probes, kernels=self.cfg.kernels)
             pending.append((pend, n_pend, got[:w + 1]))
         if sum(int(n) for _, n, _ in pending) == 0:

@@ -680,6 +680,114 @@ def test_t1_plain_rounds_on_card_never_tear_rows(dev):
     assert int(rows[-1].sum()) == 2 * int(valid.sum())
 
 
+def _k3_columns(rows):
+    """(n, W) int64 key rows -> W int32 columns laid out as K3 writes
+    them: the rows of one (W, n) buffer."""
+    return tuple(sortcount.i32(rows.T.contiguous()).unbind(0))
+
+
+def _t1_case(case, dev):
+    """Key columns of one T1 card case and its table size and probes."""
+    from kaarme_tpu_torch.ops import windows
+
+    n = 1 << 16
+    if case in ("poly_a", "ac_repeat"):
+        k = 51
+        codes = torch.zeros(n + k - 1, dtype=torch.int32, device=dev)
+        if case == "ac_repeat":
+            codes[1::2] = 1                       # ACAC...: two keys in alternate lanes
+        keys, valid, _ = windows.windows_with_hash(codes.view(1, -1), k)
+        return _k3_columns(torch.stack(keys, 1)), 12, 64
+    if case == "near_equal":
+        # per warp 8 keys of 4 lanes each; keys that share a warp differ
+        # in ONE word (word 0, 1 or 3), and warps repeat every 64
+        i = torch.arange(n, device=dev)
+        lane, warp = i % 32, (i // 32) % 64
+        base = torch.stack([warp * 0x9E3779B1, warp * 0x85EBCA6B, warp * 0xC2B2AE35 + 7,
+                            (warp % 8) << 26], 1) & 0xFFFFFFFF
+        flip = torch.stack([lane & 1, (lane >> 1) & 1, lane * 0, ((lane >> 2) & 1) << 30], 1)
+        return _k3_columns(base ^ flip), 14, 64
+    k = int(case.split("_")[1])                   # overfull_k: 2^8 slots, max_probes 8
+    keys, valid, _ = _table_keys(4000, k, seed=k, dev=dev)
+    rows = torch.stack(keys, 1).masked_fill(~valid[:, None], 0xFFFFFFFF)
+    return _k3_columns(rows), 8, 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amount", [False, True], ids=["ones", "amounts"])
+@pytest.mark.parametrize("case", ["poly_a", "ac_repeat", "near_equal", "overfull_13",
+                                  "overfull_51", "overfull_201"])
+def test_t1_derived_equals_plain(dev, case, amount):
+    """T1 from K3-shaped key columns alone (valid and h derived in the
+    kernel, equal keys aggregated per warp) == the plain version (torch
+    validity and hash_words, then the probe rounds): the same stored
+    (key row, count) multiset where nothing is pending; in overfull
+    tables stored + pending == input per key on both; no key in two
+    slots and lookup (the hash_words chain) finds every stored key."""
+    from kaarme_tpu_torch.ops import cuda_table, table
+
+    keys, cap_log2, max_probes = _t1_case(case, dev)
+    W = len(keys)
+    valid = sortcount._is_sentinel_i32(keys) == 0
+    g = torch.Generator(device=dev).manual_seed(W)
+    amt = (torch.randint(1, 6, valid.shape, generator=g, device=dev, dtype=torch.int32)
+           if amount else torch.ones(valid.shape, dtype=torch.int32, device=dev))
+    runs = []
+    for run in (cuda_table.table_insert, cuda_table.table_insert_plain):
+        tk, cn = table.make_table(cap_log2, W, dev)
+        pend, npend = run(tk, cn, keys, amount=amt if amount else None, max_probes=max_probes)
+        torch.cuda.synchronize()
+        assert int(npend) == int(pend.sum()) and not (pend & ~valid).any()
+        rows = _check_table_invariants(tk, cn, max_probes)
+
+        def totals(cols, a):
+            uk, inv = torch.unique(torch.stack([sortcount.i32(c) for c in cols]), dim=1,
+                                   return_inverse=True)
+            return uk, torch.zeros(uk.shape[1], dtype=torch.int64, device=dev).index_add_(
+                0, inv, a.long())
+
+        want = totals([x[valid] for x in keys], amt[valid])
+        got = totals([torch.cat([r, x[pend]]) for r, x in zip(rows[:W], keys)],
+                     torch.cat([rows[W], amt[pend]]))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        runs.append((rows, int(npend)))
+    if case.startswith("overfull"):
+        assert runs[0][1] > 0 and runs[1][1] > 0
+    else:
+        assert runs[0][1] == runs[1][1] == 0 and torch.equal(runs[0][0], runs[1][0])
+        if case in ("poly_a", "ac_repeat"):
+            assert runs[0][0].shape[1] == (1 if case == "poly_a" else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [13, 51])
+def test_table_count_step_hashes_on_card(dev, k):
+    """The table route's count step on the card launches K3 and T1 once
+    and makes no host hash (``hash_words``) call; its table == the plain
+    step's."""
+    from kaarme_tpu_torch.models import sort_counter
+    from kaarme_tpu_torch.ops import cuda_table, cuda_winkeys, hashing, table
+
+    n = 1 << 14
+    flat = _codes(n, k, seed=k).clip(0, 4).astype(np.uint8)
+    packed, sep, m, dense = sort_counter.pack_chunk(flat, n)
+    out = []
+    for kernels in ("cuda", "plain"):
+        chunk = dict(packed=sort_counter.to_device(packed, dev),
+                     sep=sort_counter.to_device(sep, dev), k=k, n=m, dense=dense)
+        hashing.hash_words.calls = 0
+        cuda_table.table_insert.launches = cuda_winkeys.window_keys.launches = 0
+        tk, cn, ov, pend = table.count_step(*table.make_table(16, (k + 15) // 16, dev),
+                                            kernels=kernels, **chunk)
+        torch.cuda.synchronize()
+        if kernels == "cuda":
+            assert hashing.hash_words.calls == 0
+            assert cuda_table.table_insert.launches == cuda_winkeys.window_keys.launches == 1
+        assert int(ov) == 0 and not pend.any()
+        out.append(_table_multiset(tk, cn))
+    assert torch.equal(out[0], out[1])
+
+
 @pytest.mark.cuda
 def test_table_counter_grows_on_card_as_plain(dev):
     """Forced growth (migration through T1 with amount = stored count):

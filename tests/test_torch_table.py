@@ -284,3 +284,151 @@ def test_insert_checks_its_inputs():
                                 torch.zeros(6, dtype=torch.int32), pk, v, h)
     with pytest.raises(ValueError, match="bool"):
         cuda_table.table_insert(tk, cn, pk, v.to(torch.int32), h)
+
+
+def _chunk_keys(k, n, seed, bloom_share=0.0):
+    """The table route's key columns of one n-window batch (K3's plain
+    version on its transfer chunk) over random codes with N patches and a
+    repeated stretch; with ``bloom_share`` > 0, the ``-b`` gate on a BF2
+    that holds about that share of the batch's keys, so the other keys
+    come back all-ones.  Returns (key columns, (n, W) uint32 rows)."""
+    from kaarme_tpu_torch.models import bloom_counter
+    from kaarme_tpu_torch.ops import bloom as bloom_ops, sortcount
+    from kaarme_tpu_torch.ops.hashing import hash_words64
+
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(0, 4, n + k - 1).astype(np.uint8)
+    flat[rng.random(flat.shape[0]) < 0.004] = 4
+    flat[n // 2: n // 2 + 2 * k] = flat[: 2 * k]            # keys seen twice in the batch
+    packed, sep, m, dense = sort_counter.pack_chunk(flat, n)
+    chunk = dict(packed=sort_counter.to_device(packed, torch.device("cpu")),
+                 sep=sort_counter.to_device(sep, torch.device("cpu")), k=k, n=m, dense=dense)
+    gate = {}
+    if bloom_share:
+        keys = sortcount.window_keys_from_chunk(**chunk)
+        _, hfn, _, bf2 = bloom_counter.make_filters(n, 0.001, "cpu")
+        r1, r2 = hash_words64(keys)
+        held = (sortcount._is_sentinel_i32(keys) == 0) & torch.from_numpy(
+            rng.random(m) < bloom_share)
+        gate = dict(bloom=bloom_ops.set_bits(bf2, r1, r2, hfn, held), hfn=hfn)
+    keys = sortcount.window_keys_from_chunk(**chunk, **gate)
+    return keys, torch.stack(keys, 1).numpy().view(np.uint32)
+
+
+def _ref_derived(cap_log2, rows, amount=None, max_probes=64):
+    """The JAX insert fed what T1 derives: valid = not all-ones in every
+    word, h = ``hash_words`` of the key words."""
+    rk = _ref_keys(rows)
+    valid = ~(rows == 0xFFFFFFFF).all(1)
+    tk, cn = ref_table.make_table(cap_log2, rows.shape[1])
+    ramt = None if amount is None else jnp.asarray(amount)
+    out = ref_table.insert(tk, cn, rk, jnp.asarray(valid), ref_hash(rk), ramt,
+                           max_probes=max_probes)
+    return out, valid
+
+
+@pytest.mark.parametrize("kernels", ["cuda", "plain"])
+@pytest.mark.parametrize("cap_log2,max_probes", [(12, 64), (8, 8)], ids=["roomy", "overfull"])
+@pytest.mark.parametrize("k", [13, 51, 201])
+def test_insert_derives_validity_and_hash_as_reference(k, cap_log2, max_probes, kernels):
+    """``insert(..., valid=None, h=None)`` on the route's key columns ==
+    the JAX insert fed valid = not all-ones and h = hash_words(keys): the
+    same occupied (key row, count) multiset and the same pending set,
+    also when the table overflows."""
+    keys, rows = _chunk_keys(k, 1024, seed=k)
+    (rtk, rcn, rpend), valid = _ref_derived(cap_log2, rows, max_probes=max_probes)
+    assert 0 < int((~valid).sum()) < valid.shape[0]
+    tk, cn = table.make_table(cap_log2, rows.shape[1], "cpu")
+    tk, cn, pending, n_pending = table.insert(tk, cn, keys, max_probes=max_probes,
+                                              kernels=kernels)
+    assert _multiset(tk.numpy(), cn.numpy()) == _multiset(rtk, rcn)
+    np.testing.assert_array_equal(pending.numpy(), np.asarray(rpend))
+    assert int(n_pending) == int(pending.sum())
+    assert bool(pending.any()) == (cap_log2 == 8)
+    if cap_log2 == 12:
+        assert int(cn.sum()) == int(valid.sum())
+
+
+@pytest.mark.parametrize("k", [13, 51, 201])
+def test_insert_derives_validity_after_bloom_gate_with_amounts(k):
+    """A batch whose Bloom-missed keys the ``-b`` gate turned all-ones,
+    with amounts 1-5: derived validity and hash == the JAX insert fed
+    them, exactly; the gated windows add nothing."""
+    keys, rows = _chunk_keys(k, 1024, seed=k + 7, bloom_share=0.5)
+    amount = np.random.default_rng(k).integers(1, 6, rows.shape[0]).astype(np.int32)
+    (rtk, rcn, rpend), valid = _ref_derived(12, rows, amount)
+    assert 300 < int((~valid).sum()) < 800                     # gated and invalid windows
+    for kernels in ("cuda", "plain"):
+        tk, cn = table.make_table(12, rows.shape[1], "cpu")
+        tk, cn, pending, _ = table.insert(tk, cn, keys, amount=torch.from_numpy(amount),
+                                          kernels=kernels)
+        assert not pending.any() and not np.asarray(rpend).any()
+        assert _multiset(tk.numpy(), cn.numpy()) == _multiset(rtk, rcn)
+        assert int(cn.sum()) == int(amount[valid].sum())
+
+
+def test_key_columns_pass_views_and_stack_the_rest():
+    """T1 reads K3's (W, N) columns and a table's ``tk[:, w]`` where they
+    lie (word w of window i at w * lw + i * li) and a copy of anything
+    else."""
+    k3 = torch.arange(3 * 10, dtype=torch.int32).view(3, 10)
+    buf, lw, li = cuda_table._key_columns(tuple(k3.unbind(0)))
+    assert buf.data_ptr() == k3.data_ptr() and (lw, li) == (10, 1)
+    tk = torch.arange(10 * 4, dtype=torch.int32).view(10, 4)
+    buf, lw, li = cuda_table._key_columns(tuple(tk[:, w] for w in range(4)))
+    assert buf.data_ptr() == tk.data_ptr() and (lw, li) == (1, 4)
+    buf, lw, li = cuda_table._key_columns((k3[0], k3[2]))
+    assert buf.data_ptr() == k3.data_ptr() and (lw, li) == (20, 1)
+    for cols in ((k3[1].to(torch.int64), k3[2].to(torch.int64)), (k3[0], k3[1].clone()),
+                 (k3[0], k3[1][::2].repeat(2))):
+        buf, lw, li = cuda_table._key_columns(cols)
+        assert buf.shape == (2, 10) and (lw, li) == (10, 1)
+        assert torch.equal(buf, torch.stack([c.to(torch.int32) for c in cols]))
+    flat = k3.view(-1)
+    buf, lw, li = cuda_table._key_columns((flat[3:8], flat[13:18]))
+    assert buf.data_ptr() == flat[3:].data_ptr() and (lw, li) == (10, 1)
+
+
+@pytest.mark.parametrize("k", [13, 51, 201])
+def test_grow_path_matches_reference(k):
+    """The counter's grow and retry (migration with the stored counts as
+    amounts, then the pending windows as ``valid``, no host hashes) ==
+    the JAX counter: the same grow events and table."""
+    from kaarme_tpu.models.counter import CounterConfig as RefConfig, KmerCounter as RefCounter
+    from kaarme_tpu_torch.models.counter import CounterConfig, KmerCounter
+
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, 1200).astype(np.uint8)
+    codes[rng.random(1200) < 0.002] = 4
+    kw = dict(k=k, min_slots=256, tile=128, batch_tiles=2, min_abundance=1)
+    port = KmerCounter(CounterConfig(device="cpu", **kw)).count_codes(codes)
+    ref = RefCounter(RefConfig(**kw)).count_codes(codes)
+    assert port.stats["grow_events"] == ref.stats["grow_events"] >= 1
+    assert port.occupancy() == ref.occupancy()
+    assert port.as_dict() == ref.as_dict() == codec.golden_count(codes, k)
+    ptk, pcn = port.dump()
+    rtk, rcn = ref.dump()
+    assert _multiset(ptk, pcn) == _multiset(np.asarray(rtk), np.asarray(rcn))
+
+
+@pytest.mark.parametrize("k", [13, 51])
+def test_sharded_path_matches_reference(k):
+    """The sharded table (records routed by the hash they carry, inserted
+    with valid=None on the owner) == the JAX sharded table on two
+    shards: every shard's slots, grow events."""
+    from kaarme_tpu.parallel.sharded import (ShardedCounterConfig as RefConfig,
+                                             ShardedKmerCounter as RefCounter,
+                                             make_mesh as ref_mesh)
+    from kaarme_tpu_torch.parallel import ShardedCounterConfig, ShardedKmerCounter, make_mesh
+
+    rng = np.random.default_rng(k + 1)
+    codes = rng.integers(0, 4, 1500).astype(np.uint8)
+    codes[rng.random(1500) < 0.01] = 4
+    kw = dict(k=k, min_slots=1 << 9, tile=128, batch_tiles=4, min_abundance=1, max_probes=8)
+    port = ShardedKmerCounter(ShardedCounterConfig(**kw), make_mesh(2, "cpu")).count_codes(codes)
+    ref = RefCounter(RefConfig(**kw), ref_mesh(2)).count_codes(codes)
+    ptk, pcn = port._host_table()
+    np.testing.assert_array_equal(ptk, np.asarray(ref.tkeys))
+    np.testing.assert_array_equal(pcn, np.asarray(ref.counts))
+    assert port.stats["grow_events"] == ref.stats["grow_events"] >= 1
+    assert port.as_dict() == codec.golden_count(codes, k)

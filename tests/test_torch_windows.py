@@ -15,7 +15,8 @@ from kaarme_tpu.models import tiling as ref_tiling
 from kaarme_tpu.ops import windows as ref_windows
 from kaarme_tpu.utils import mathutils as ref_math
 from kaarme_tpu_torch.models import sort_counter, tiling
-from kaarme_tpu_torch.ops import table, windows
+from kaarme_tpu_torch.ops import sortcount, windows
+from kaarme_tpu_torch.ops.hashing import hash_words
 from kaarme_tpu_torch.utils import mathutils
 
 
@@ -66,15 +67,18 @@ def test_windows_of_unfolded_flat_batch_equal_reference_tiles():
 
 @pytest.mark.parametrize("k", [2, 5, 15, 16, 17, 31, 33, 51])
 def test_chunk_windows_equal_tile_windows(k):
-    """The table route's windows (K3's plain version on the batch's
-    transfer chunk): the same validity as ``windows_with_hash`` on the
-    batch's tiles, and the same keys and hashes wherever valid."""
+    """The table route's key columns (K3's plain version on the batch's
+    transfer chunk): all-ones exactly where ``windows_with_hash`` on the
+    batch's tiles is invalid, and the same keys and hashes wherever
+    valid."""
     tile, bt = 64, 4
     flat = _tiles(200 + k, (3, bt * tile + k - 1)).reshape(-1)[: bt * tile + k - 1]
     packed, sep, n, dense = sort_counter.pack_chunk(flat, bt * tile)
     cpu = torch.device("cpu")
-    ck, cv, ch = table.chunk_windows(sort_counter.to_device(packed, cpu),
-                                     sort_counter.to_device(sep, cpu), k=k, n=n, dense=dense)
+    ck = sortcount.window_keys_from_chunk(sort_counter.to_device(packed, cpu),
+                                          sort_counter.to_device(sep, cpu), k=k, n=n,
+                                          dense=dense)
+    cv, ch = sortcount._is_sentinel_i32(ck) == 0, hash_words(ck)
     wk, wv, wh = windows.windows_with_hash(torch.from_numpy(flat).unfold(0, tile + k - 1, tile), k)
     assert torch.equal(cv, wv) and not cv.all() and cv.any()
     for a, b in zip(ck, wk):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one card, in turns, on chip_smoke's inputs.
 
-    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|table OTHER_ROOT [--reps 5]
+    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|table OTHER_ROOT [--reps 5]
 
 Run from the repository root.  Times a kernel of this checkout and of the
 checkout at OTHER_ROOT (for example the parent commit, unpacked with
@@ -22,6 +22,14 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
   window keys, k=51 embedded and k=13 separate count, whose inputs come
   from the plain versions;
 - k5: ``cuda_skm.run_rows_slotted`` at S=96;
+- t1: the table route's step from K3's key columns to the updated table,
+  on chip_smoke's phase-T1 batches: one 2^20-window batch of k=51 reads
+  into a 2^23-slot table holding the 63 batches before it, a poly-A
+  batch and an AC-repeat batch into an empty one, each timed from a
+  fresh copy of its table.  Where a checkout's ``table_insert`` needs
+  ``valid`` and ``h`` (before T1 derived them), the timed call is the
+  chain it ran: the sentinel mask, ``hashing.hash_words``, then T1; the
+  digest is the sorted occupied (key row, count) pairs;
 - table: not one kernel but the probe-table route around T1: a
   ``KmerCounter`` (k=51, ``min_slots`` 8,000,000, the CLI's table
   configuration) counting chip_smoke's full-size FASTA (4.6 Mb genome,
@@ -32,7 +40,8 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
 
 Where a checkout's K1, K3 or K5 takes codes (before its chunk-input
 kernel), the timed call is ``sortcount.codes_from_chunk`` followed by it,
-as its main path ran them.  Each checkout runs in its own process (the packages
+as its main path ran them (``inspect`` tells them apart, as it tells
+the T1 interfaces apart).  Each checkout runs in its own process (the packages
 share a name), in the order other, this, this, other; each process builds
 its kernels first and prints one JSON line: CUDA-event medians of
 ``--reps`` calls after a warm-up, and a digest of the outputs, which must
@@ -171,6 +180,54 @@ def k2_calls(cs, dev):
         "classic_k13_full_sum": lambda: cuda_compact.segsum_compact(ckeys, ccnt, out_len=CAP)}
 
 
+def t1_worker(cs, dev, root: str, reps: int) -> dict:
+    """The step from K3's key columns to the updated table (``t1``
+    above), CUDA-event medians from fresh copies of each table."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_table, hashing, sortcount
+
+    per = cs.TABLE_TILE * cs.TABLE_BATCH_TILES
+    fused = inspect.signature(cuda_table.table_insert).parameters["valid"].default is None
+
+    def step(tk, cn, keys):
+        if fused:
+            return cuda_table.table_insert(tk, cn, keys)
+        valid = sortcount._is_sentinel_i32(keys) == 0
+        return cuda_table.table_insert(tk, cn, keys, valid, hashing.hash_words(keys))
+
+    out = dict(root=root, api="T1 from the key columns" if fused else
+               "sentinel mask + hash_words + T1", ms={}, digest={})
+    for name, before in (("k51", 63), ("polyA", 0), ("AC", 0)):
+        if before:
+            codes = cs.read_stream(dev, 4_600_000, (before + 1) * per + cs.K - 1,
+                                   n_every=100_003)
+        else:
+            codes = torch.zeros(per + cs.K - 1, dtype=torch.int32, device=dev)
+            if name == "AC":
+                codes[1::2] = 1
+        tk, cn = torch.zeros((1 << cs.TABLE_LOG2, 4), dtype=torch.int32, device=dev), \
+            torch.zeros(1 << cs.TABLE_LOG2, dtype=torch.int32, device=dev)
+        batch = lambda b: cs.chunk_of(codes[b * per: (b + 1) * per + cs.K - 1])[:2]
+        for b in range(before):
+            packed, sep = batch(b)
+            keys = sortcount.window_keys_from_chunk(packed, sep, k=cs.K, n=per)
+            if int(step(tk, cn, keys)[1]):
+                raise RuntimeError(f"t1 {name}: pending windows while filling the table")
+        packed, sep = batch(before)
+        keys = sortcount.window_keys_from_chunk(packed, sep, k=cs.K, n=per)
+        del codes, packed, sep
+        fresh = lambda: (tk.clone(), cn.clone(), keys)
+        t, c, _ = fresh()
+        if int(step(t, c, keys)[1]):
+            raise RuntimeError(f"t1 {name}: pending windows")
+        out["digest"][name] = [digest(cs.occupied_rows(t, c))]
+        del t, c
+        out["ms"][name] = cs.cuda_ms_fresh(fresh, step, reps)
+        del tk, cn, keys
+        torch.cuda.empty_cache()
+    return out
+
+
 def table_worker(root: str, reps: int) -> dict:
     """The table route's count of the shared FASTA (``table`` above)."""
     import statistics
@@ -205,6 +262,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
     _build.lib()
     if kernel == "table":
         return table_worker(root, reps)
+    if kernel == "t1":
+        return t1_worker(cs, dev, root, reps)
     api, calls = {"k1": k1_calls, "k2": k2_calls, "k3": k3_calls, "k4": k4_calls,
                   "k5": k5_calls}[kernel](cs, dev)
     out = dict(root=root, api=api, ms={}, digest={})
@@ -221,7 +280,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "table"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "t1", "table"),
+                    required=True)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
