@@ -104,7 +104,23 @@ Run from the repository root.  It builds the port's CUDA kernels from
    before it connects; per process its start, count, exchange, write
    and merge times, peak device memory, rounds, replays, grow events,
    staged exchange bytes and launch counters (K3 once per shard step,
-   K2 once more for the exchange's compaction, K4 never).
+   K2 once more for the exchange's compaction, K4 never, W1 for the
+   part file);
+11. W1 (the count file's lines, ``kaarme_tpu_torch/ops/writer.py``)
+   against its plain version, byte for byte with the line count, on
+   random sorted rows at full size: 4,599,948 rows at k=51 (a sort
+   store's column layout, -a 1), 4,297,645 rows at k=13 scattered over
+   a 2^23-slot table's (C, W) slot rows (empty slots write nothing),
+   2^20 rows at k=201 (-a 2), and k=51 with -m 0 -a 0 and counts up to
+   70,000 (wrapped counts of 0 written, dead rows not); each with its
+   kernel and plain times, its byte bound and the copy of its text into
+   pinned host memory; then 2^26 rows at k=51 (about 3.7 GB of text,
+   more than 2^31 bytes) through ``write_lines``' row chunks, every
+   chunk equal to the plain version's (and by digest), with each
+   chunk's kernel and device-to-host milliseconds.  Every count file
+   of items 7-10 is written by W1 (its launch counter > 0 on every
+   kernel run, 0 under ``--kernels plain``), so their comparisons hold
+   it end to end.
 
 Each kernel phase also computes the kernel's bound at its shape: the
 least time the card could take, each input byte read once and each
@@ -114,10 +130,11 @@ launched once per superstep and replay.  Each phase raises on failure
 (non-zero exit).  The last lines are the kernel table as JSON (with
 each kernel's bound, its share and ``library_ms``: null, as no single
 PyTorch call computes any of these functions; T1, which is not a TPU
-kernel but replaces the JAX package's XLA probe rounds, has its entry
-too), the card's name and power limit, and {"ok": true, "device":
-{...}}.  Exits non-zero without a CUDA device, and where the port has
-imported jax or kaarme_tpu.
+kernel but replaces the JAX package's XLA probe rounds, and W1, which
+replaces its host numpy writer, have their entries too), the card's
+name and power limit, and {"ok": true, "device": {...}}.  Exits
+non-zero without a CUDA device, and where the port has imported jax or
+kaarme_tpu.
 """
 
 from __future__ import annotations
@@ -1039,7 +1056,8 @@ def phase_small(tmp):
     out = os.path.join(tmp, "small_slotted.txt")
     counter, launches = counted(
         lambda: slotted_count([path, "31", "-s", "100000", "-a", "1", "-q"], out, S=8),
-        "small k=31 slotted S=8", ("skm_slotted", "segsum_compact"), quiet=True)
+        "small k=31 slotted S=8", ("skm_slotted", "segsum_compact", "format_lines"),
+        quiet=True)
     want = golden(reads, 31)
     with open(out, "rb") as f:
         got = {ln.split()[0]: int(ln.split()[1]) for ln in f.read().splitlines()}
@@ -1053,14 +1071,16 @@ def phase_small(tmp):
 
 
 def launch_counters():
-    from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, cuda_skm, cuda_table, cuda_winkeys
+    from kaarme_tpu_torch.ops import (cuda_compact, cuda_merge, cuda_skm, cuda_table,
+                                      cuda_winkeys, writer)
 
     return {"skm_dense": cuda_skm.run_rows_dense,
             "segsum_compact": cuda_compact.segsum_compact,
             "window_keys": cuda_winkeys.window_keys,
             "merge_compact": cuda_merge.merge_compact,
             "skm_slotted": cuda_skm.run_rows_slotted,
-            "table_insert": cuda_table.table_insert}
+            "table_insert": cuda_table.table_insert,
+            "format_lines": writer.format_lines}
 
 
 def slotted_count(argv, out_path: str, S=None):
@@ -1135,7 +1155,8 @@ def counted(fn, label: str, uses=(), quiet: bool = False):
 
 
 def run_full(argv, label: str, uses=()):
-    """One CLI run through ``counted``."""
+    """One CLI run through ``counted``: its count file written by W1, or
+    under ``--kernels plain`` with no W1 launch."""
     from kaarme_tpu_torch import cli
 
     def go():
@@ -1144,7 +1165,11 @@ def run_full(argv, label: str, uses=()):
             raise AssertionError(f"full-size CLI run {label} exited {rc}")
         return counter
 
-    return counted(go, label, uses)
+    plain = "--kernels" in argv and argv[argv.index("--kernels") + 1] == "plain"
+    counter, launches = counted(go, label, uses if plain else (*uses, "format_lines"))
+    if plain and launches["format_lines"]:
+        raise AssertionError(f"{label}: W1 launched {launches['format_lines']} times")
+    return counter, launches
 
 
 def same_file(a: str, b: str, what: str):
@@ -1278,7 +1303,7 @@ def phase_full(tmp):
     # the slotted skm layout (K5), configured as the CLI configures skm
     counter, slotted_launches = counted(lambda: slotted_count(argv, out("slotted")),
                                         f"k={K} skm slotted S=96",
-                                        ("skm_slotted", "segsum_compact"))
+                                        ("skm_slotted", "segsum_compact", "format_lines"))
     st = counter.stats
     k5 = slotted_launches["skm_slotted"]
     if slotted_launches["skm_dense"] or k5 != st["batches"] + st["replayed_supersteps"]:
@@ -1346,7 +1371,8 @@ def phase_full(tmp):
                 "window_keys": classic_launches["window_keys"],
                 "merge_compact": merge_launches["merge_compact"],
                 "skm_slotted": slotted_launches["skm_slotted"],
-                "table_insert": table_runs(path, out, n_reads, distinct)}
+                "table_insert": table_runs(path, out, n_reads, distinct),
+                "format_lines": skm_launches["format_lines"]}
     files = {"input": path, "skm": out("skm"), "k13": out("k13"), "n_reads": n_reads}
     return launches, files
 
@@ -1369,10 +1395,11 @@ def sharded_run(make, path: str, out_path: str, label: str, uses):
     """Phase 9's one run: count the full-size file on ``make()``'s shards,
     finalize (the exchange) and write, with every launch counter set to 0
     just before and read just after; fails if a kernel of ``uses`` was
-    not launched.  Prints the times, memory, rounds and the balance.
-    Returns (counter, launches)."""
+    not launched (W1 always: the count file).  Prints the times, memory,
+    rounds and the balance.  Returns (counter, launches)."""
     import torch
 
+    uses = (*uses, "format_lines")
     fns = launch_counters()
     for f in fns.values():
         f.launches = 0
@@ -1530,14 +1557,14 @@ sys.meta_path.insert(0, _Block())
 import numpy as np
 import torch
 import torch.distributed as dist
-from kaarme_tpu_torch.ops import _build, cuda_compact, cuda_merge, cuda_winkeys
+from kaarme_tpu_torch.ops import _build, cuda_compact, cuda_merge, cuda_winkeys, writer
 from kaarme_tpu_torch.parallel import multihost as mh
 
 mode, argv = sys.argv[1], sys.argv[2:]
 _build.lib()
 torch.zeros(1, device="cuda")
 fns = {"window_keys": cuda_winkeys.window_keys, "segsum_compact": cuda_compact.segsum_compact,
-       "merge_compact": cuda_merge.merge_compact}
+       "merge_compact": cuda_merge.merge_compact, "format_lines": writer.format_lines}
 for f in fns.values():
     f.launches = 0
 torch.cuda.reset_peak_memory_stats()
@@ -1652,11 +1679,12 @@ def mh_run(label: str, mode: str, nproc: int, argv, smi: str, timeout: float = 6
 
 def check_mh(label: str, stats, distinct=None):
     """Every process: K3 once per shard step (one local shard), K2 once
-    more for the exchange's compaction, K4 never; one prefix cap and one
-    count of grow events; the parts' records sum to ``distinct``."""
+    more for the exchange's compaction, K4 never, W1 for its part file;
+    one prefix cap and one count of grow events; the parts' records sum
+    to ``distinct``."""
     for st in stats:
         want = {"window_keys": st["steps"], "segsum_compact": st["steps"] + 1,
-                "merge_compact": 0}
+                "merge_compact": 0, "format_lines": max(st["launches"]["format_lines"], 1)}
         if st["launches"] != want:
             raise AssertionError(f"multi-host {label}: process {st['pid']} launches "
                                  f"{st['launches']} != {want}")
@@ -1667,7 +1695,8 @@ def check_mh(label: str, stats, distinct=None):
     if distinct is not None and total != distinct:
         raise AssertionError(f"multi-host {label}: parts hold {total} records, not {distinct}")
     print(f"multi-host {label}: K3 launched once per shard step "
-          f"({[st['steps'] for st in stats]}), K2 once more; prefix cap "
+          f"({[st['steps'] for st in stats]}), K2 once more, W1 "
+          f"{[st['launches']['format_lines'] for st in stats]} times; prefix cap "
           f"{stats[0]['prefix_cap']} and {stats[0]['grow_events']} grow events on every "
           f"process; parts {[st['written'] for st in stats]} records")
 
@@ -1722,6 +1751,148 @@ def phase_multihost(files: dict, smi: str):
     print(f"multi-host --num-processes 3 --devices 1: exit 1, {res.stderr.strip()!r}")
 
 
+def w1_rows(dev, k: int, n: int, counts: str, layout: str = "store", seed: int = 0):
+    """A dump part at full size, on the card: n sorted rows of random
+    canonical-width keys (the trailing word's unused low bits 0) and int32
+    counts ("reads": mostly 1-59 with one row in 1000 up to 70,000, as a
+    30x run gives; "wrap": uniform 0-70,000, with every 997th row 65,536
+    (written as 0 under -m 0 -a 0) and the next one dead).  Layout
+    "store": the key columns are rows of one (W + 1, n) buffer, as a sort
+    store's; "table": the rows are scattered over a 2^23-slot (C, W) slot
+    array whose other slots are empty (count 0), as the table's dump part."""
+    import torch
+    from kaarme_tpu_torch.ops import sortcount
+
+    g = torch.Generator(device=dev).manual_seed(SEED + seed)
+    W = (k + 15) // 16
+    keys = torch.randint(-(1 << 31), 1 << 31, (W, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    tail = 2 * (k - 16 * (W - 1))
+    if tail < 32:
+        keys[W - 1] &= -(1 << (32 - tail))
+    if counts == "wrap":
+        cnt = torch.randint(0, 70_001, (n,), generator=g, device=dev, dtype=torch.int32)
+        cnt[::997] = 65_536
+        cnt[1::997] = 0
+    else:
+        cnt = torch.randint(1, 60, (n,), generator=g, device=dev, dtype=torch.int32)
+        big = torch.rand(n, generator=g, device=dev) < 1e-3
+        cnt[big] = torch.randint(1, 70_001, (int(big.sum()),), generator=g, device=dev,
+                                 dtype=torch.int32)
+    rows = sortcount.lexsort(list(keys) + [cnt], num_keys=W)
+    del keys, cnt
+    if layout == "store":
+        return tuple(rows[:W].unbind(0)), rows[W]
+    C = 1 << 23
+    slots = torch.randperm(C, generator=g, device=dev)[:n]
+    tk = torch.full((C, W), -1, dtype=torch.int32, device=dev)
+    cn = torch.zeros(C, dtype=torch.int32, device=dev)
+    tk[slots] = rows[:W].T
+    cn[slots] = rows[W]
+    return tuple(tk.unbind(1)), cn
+
+
+def w1_bound(keys, cnt, text, k: int) -> dict:
+    """W1's least time: every count and the key words of the live rows
+    read once and the text written once, against about 10 operations a
+    row, 3 a base and 3 a digit of every line written."""
+    live = int((cnt > 0).sum())
+    nbytes = 4 * len(keys) * live + cnt.numel() * cnt.element_size() + text.numel()
+    lines = int((text == ord("\n")).sum())
+    digits = text.numel() - lines * (k + 2)
+    ops = 10.0 * cnt.numel() + 3.0 * (k * lines + digits)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
+                "operations", bound_bytes=nbytes, bound_ops=ops)
+
+
+def phase_w1(dev):
+    """W1 (the count file's lines) against its plain version, byte for
+    byte, on random sorted rows at full size (docstring item 11)."""
+    import torch
+    from kaarme_tpu_torch.ops import writer
+
+    host = torch.empty(writer.CHUNK_BYTES, dtype=torch.uint8, pin_memory=True)
+
+    def d2h_ms(text) -> float:
+        return cuda_ms(lambda: host[:text.numel()].copy_(text, non_blocking=True), 3)
+
+    out, err = {}, 0
+    cases = ((f"k={K}", K, DISTINCT_K51, "reads", "store", 1),
+             ("k=13 table layout", 13, 4_297_645, "reads", "table", 1),
+             ("k=201", 201, 1 << 20, "reads", "store", 2),
+             (f"k={K} -m 0 -a 0", K, DISTINCT_K51, "wrap", "store", 0))
+    for label, k, n, counts, layout, abu in cases:
+        keys, cnt = w1_rows(dev, k, n, counts, layout, seed=k)
+        mode = 0 if counts == "wrap" else 2
+        kw = dict(k=k, mode=mode, min_abundance=abu)
+        buf = torch.empty(cnt.numel() * writer.line_bytes(k), dtype=torch.uint8, device=dev)
+        text, lines = writer.format_lines(keys, cnt, out=buf, **kw)
+        want, want_lines = writer.format_lines_plain(keys, cnt, **kw)
+        torch.cuda.synchronize()
+        if lines != want_lines or text.numel() != want.numel():
+            raise AssertionError(f"W1 {label}: kernel {text.numel()} bytes / {lines} lines != "
+                                 f"plain {want.numel()} / {want_lines}")
+        e = int((text.to(torch.int16) - want.to(torch.int16)).abs().max())
+        if e:
+            raise AssertionError(f"W1 {label}: kernel != plain (max abs err {e})")
+        err = max(err, e)
+        del want
+        ms = cuda_ms(lambda: writer.format_lines(keys, cnt, out=buf, **kw))
+        plain_ms = cuda_ms(lambda: writer.format_lines_plain(keys, cnt, **kw), 3)
+        b = w1_bound(keys, cnt, text, k)
+        copy_ms = d2h_ms(text)
+        out[label] = dict(ms=ms, plain_ms=plain_ms, d2h_ms=copy_ms, **b)
+        print(f"W1 format_lines {label} ({layout} layout, {cnt.numel()} rows, "
+              f"{cnt.dtype}): {lines} lines, {text.numel()} bytes == plain; kernel {ms:.3f} "
+              f"ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+              f"{b['bound_bytes']} B), device-to-host copy into pinned memory {copy_ms:.3f} ms")
+        del keys, cnt, buf, text
+        torch.cuda.empty_cache()
+
+    # 2^26 rows, ~3.7 GB of text: write_lines' row chunks, each held to the
+    # plain version, so that more than 2^31 bytes pass through the chunking
+    n = 1 << 26
+    keys, cnt = w1_rows(dev, K, n, "reads", seed=3)
+    rows = writer.CHUNK_BYTES // writer.line_bytes(K)
+    buf = torch.empty(rows * writer.line_bytes(K), dtype=torch.uint8, device=dev)
+    total, lines, chunks, digest = 0, 0, [], 0
+    for r0 in range(0, n, rows):
+        part = ([c[r0:r0 + rows] for c in keys], cnt[r0:r0 + rows])
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        text, m = writer.format_lines(*part, out=buf, k=K, mode=2, min_abundance=1)
+        b.record()
+        want, want_m = writer.format_lines_plain(*part, k=K, mode=2, min_abundance=1)
+        if m != want_m or text.numel() != want.numel() or not torch.equal(text, want):
+            raise AssertionError(f"W1 2^26 rows: chunk at row {r0} differs from plain")
+        sums = [int(t.sum(dtype=torch.int64)) for t in (text, want)]
+        if sums[0] != sums[1]:
+            raise AssertionError(f"W1 2^26 rows: chunk at row {r0}: digests {sums}")
+        digest = (digest * 1_000_003 + sums[0]) % (1 << 61)
+        del want
+        chunks.append((a.elapsed_time(b), d2h_ms(text)))
+        total += text.numel()
+        lines += m
+    if total <= 1 << 31 or lines != n:
+        raise AssertionError(f"W1 2^26 rows: {total} bytes, {lines} lines")
+    print(f"W1 format_lines k={K}, 2^26 rows in {len(chunks)} chunks of {rows} rows: {lines} "
+          f"lines, {total} bytes (> 2^31), every chunk == plain (digest {digest}); per chunk "
+          f"kernel ms {[round(c[0], 3) for c in chunks]}, device-to-host ms "
+          f"{[round(c[1], 3) for c in chunks]}")
+    del keys, cnt, buf, host
+    torch.cuda.empty_cache()
+    main = out[f"k={K}"]
+    extra = {f"{key}_{f}": out[label][f] for label, key in (
+        ("k=13 table layout", "k13"), ("k=201", "k201"), (f"k={K} -m 0 -a 0", "wrap"))
+        for f in ("ms", "plain_ms", "bound_ms")}
+    return dict(max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"], d2h_ms=main["d2h_ms"],
+                big_chunks=len(chunks), big_bytes=total, **extra,
+                **{key: main[key] for key in ("bound_ms", "bound_by", "bound_bytes",
+                                              "bound_ops")})
+
+
 def main() -> int:
     try:
         import torch
@@ -1772,6 +1943,8 @@ def main() -> int:
         phase_sharded(files)
         torch.cuda.empty_cache()
         phase_multihost(files, smi)
+    torch.cuda.empty_cache()
+    w1 = phase_w1(dev)
     leaked = [m for m in sys.modules if m in ("jax", "kaarme_tpu") or m.startswith("kaarme_tpu.")]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -1797,6 +1970,9 @@ def main() -> int:
         dict(name="table_insert", route="cuda", source="kaarme_tpu_torch/csrc/table_insert.cu",
              replaces="kaarme_tpu/ops/table.py:57", launches=launches["table_insert"],
              **timed(t1)),
+        dict(name="format_lines", route="cuda", source="kaarme_tpu_torch/csrc/format_lines.cu",
+             replaces="kaarme_tpu/models/sort_counter.py:495",
+             launches=launches["format_lines"], **timed(w1)),
     ]}
     print(json.dumps(table))
     print(smi)

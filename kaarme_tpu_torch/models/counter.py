@@ -37,7 +37,7 @@ from ..ops.hashing import hash_words
 from ..utils import codec
 from ..utils.device import resolve_device
 from ..utils.mathutils import capacity_log2
-from .sort_counter import CountOutput, pack_chunk, to_device
+from .sort_counter import CountOutput, pack_chunk, rows_to_host, to_device
 from .tiling import TileBatcher
 
 
@@ -169,12 +169,16 @@ class KmerCounter(CountOutput):
 
     # -- output ------------------------------------------------------------
 
+    def dump_columns(self):
+        """The whole table as one dump part, in slot order, on the device:
+        its key columns (views of the ``(C, W)`` slot rows) and count
+        column; empty slots have count 0 and write nothing."""
+        return [(tuple(self.tkeys.unbind(1)), self.counts)]
+
     def dump(self):
         """(kmers (N, W) uint32, counts (N,) int32) of occupied slots in
         slot order, *before* abundance filtering / clipping."""
-        occ = self.counts > 0
-        return (self.tkeys[occ].cpu().numpy().view(np.uint32),
-                self.counts[occ].cpu().numpy())
+        return rows_to_host(self.dump_columns(), np.int32)
 
     # -- queries -----------------------------------------------------------
 

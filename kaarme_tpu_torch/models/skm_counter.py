@@ -27,9 +27,7 @@ import time
 import numpy as np
 
 from ..ops import cuda_skm, skm, sortcount
-from ..utils import codec
-from .sort_counter import (SortCounterConfig, SortKmerCounter, _Step, live_rows_to_host,
-                           sized_store)
+from .sort_counter import SortCounterConfig, SortKmerCounter, _Step, sized_store, store_part
 
 _JAX_SEGPACKS = ("pallas", "pallas_interpret", "dense_interpret", "xla")
 
@@ -204,11 +202,11 @@ class SkmCounter(SortKmerCounter):
         store, nd = self.finalize_device()
         return int((store[-1][:nd] > 0).sum()) if nd else 0
 
-    def dump(self):
-        """(keys (N, W) uint32 sorted, counts (N,) int64) of all distinct
-        k-mers, before abundance filtering and clipping."""
+    def dump_columns(self):
+        """The finalized k-mer store's rows as one dump part, on the
+        device (sorted, before abundance filtering and clipping)."""
         store, nd = self.finalize_device()
-        return live_rows_to_host(store, nd, codec.words_per_kmer(self.cfg.k))
+        return [store_part(store, nd)]
 
     @classmethod
     def load(cls, path: str, config: "SkmCounterConfig | None" = None, *,

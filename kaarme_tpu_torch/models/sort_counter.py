@@ -30,50 +30,30 @@ import torch
 
 from ..io import codebuf, fastio
 from ..io import reader as io_reader
-from ..ops import sortcount
+from ..ops import sortcount, writer
 from ..utils import codec
 from ..utils.device import resolve_device
 
 _Step = collections.namedtuple("_Step", "packed sep n dense eff prefix_in")
 
 
-def _format_lines(tk: np.ndarray, cn: np.ndarray, k: int) -> bytes:
-    """b"KMER COUNT\\n" lines for (N, W) uint32 keys and int64 counts,
-    assembled as one byte matrix: k bases (decoded 8 at a time from the
-    keys' big-endian 16-bit halves), a space, the count's digits
-    right-aligned in the widest count's width, a newline; the unused
-    leading digit cells are then dropped row by row."""
-    n, W = tk.shape
-    base4 = np.frombuffer(b"ACGT", np.uint8)[(np.arange(256)[:, None] >> [6, 4, 2, 0]) & 3]
-    lut16 = np.concatenate([np.repeat(base4, 256, 0), np.tile(base4, (256, 1))], 1)
-    halves = tk.astype(">u4").view(">u2").astype(np.uint16).reshape(n, 2 * W)
-    D = len(str(int(cn.max())))
-    m = np.empty((n, k + D + 2), np.uint8)
-    m[:, :k] = np.take(lut16, halves, axis=0).reshape(n, 16 * W)[:, :k]
-    m[:, k] = ord(" ")
-    v = cn.astype(np.int64)
-    for j in range(k + D, k, -1):
-        m[:, j] = ord("0") + v % 10
-        v //= 10
-    m[:, -1] = ord("\n")
-    ndig = np.ones(n, np.int64)
-    for j in range(1, D):
-        ndig += cn >= 10 ** j
-    keep = np.ones(m.shape, bool)
-    keep[:, k + 1: k + 1 + D] = np.arange(D)[None, :] >= (D - ndig)[:, None]
-    return m[keep].tobytes()
+def store_part(cols, nd: int):
+    """The first ``nd`` rows of store columns (key columns + a count
+    column) as a dump part: (key columns, count column), on the device."""
+    return tuple(c[:nd] for c in cols[:-1]), cols[-1][:nd]
 
 
-def live_rows_to_host(cols, nd: int, words: int):
-    """The first ``nd`` rows of store columns (``words`` key columns + a
-    count column) -> host (keys (N, words) uint32, counts (N,) int64),
-    rows with count 0 dropped."""
-    if not nd:
-        return np.zeros((0, words), np.uint32), np.zeros((0,), np.int64)
-    keys = torch.stack([c[:nd] for c in cols[:-1]], 1).cpu().numpy().view(np.uint32)
-    cnt = cols[-1][:nd].cpu().numpy().astype(np.int64)
-    live = cnt > 0
-    return keys[live], cnt[live]
+def rows_to_host(parts, count_dtype=np.int64):
+    """Dump parts ((key columns, counts) on their devices) -> host (keys
+    (N, W) uint32, counts (N,) ``count_dtype``) in part and row order,
+    rows with count <= 0 dropped on the device."""
+    keys, cnts = [], []
+    for cols, cnt in parts:
+        live = torch.nonzero(cnt > 0).flatten()
+        keys.append(torch.stack([c.index_select(0, live) for c in cols], 1)
+                    .cpu().numpy().view(np.uint32).reshape(-1, len(cols)))
+        cnts.append(cnt.index_select(0, live).cpu().numpy().astype(count_dtype))
+    return np.concatenate(keys), np.concatenate(cnts)
 
 
 def sized_store(store, rows: int) -> tuple:
@@ -110,8 +90,14 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class CountOutput:
-    """The output every counter shares, on its ``dump()`` (keys, counts
-    before filtering and clipping), ``cfg`` and ``stats``."""
+    """The output every counter shares, on its ``dump_columns()`` (the
+    dump's parts on their devices, before filtering and clipping),
+    ``cfg`` and ``stats``."""
+
+    def dump(self):
+        """(keys (N, W) uint32, counts (N,) int64) of ``dump_columns()``
+        on the host, count-0 rows dropped, before filtering and clipping."""
+        return rows_to_host(self.dump_columns())
 
     def _clip(self, counts: np.ndarray) -> np.ndarray:
         if self.cfg.mode == 0:
@@ -128,18 +114,15 @@ class CountOutput:
 
     def write_output(self, path: str) -> int:
         """`KMER COUNT` lines in the dump's order (sorted; the probe table's
-        is slot order, so comparisons sort).  Returns #lines written."""
+        is slot order, so comparisons sort), assembled where the dump lies
+        (``ops/writer.write_lines``: W1 on a card).  Returns #lines
+        written."""
         t0 = time.perf_counter()
-        tk, cn = self.dump()
-        cn = self._clip(cn)
-        keep = cn >= self.cfg.min_abundance
-        tk, cn = tk[keep], cn[keep]
-        n = tk.shape[0]
-        with open(path, "wb") as f:
-            if n:
-                f.write(_format_lines(tk, cn, self.cfg.k))
+        cfg = self.cfg
+        n = writer.write_lines(path, self.dump_columns(), k=cfg.k, mode=cfg.mode,
+                               min_abundance=cfg.min_abundance, kernels=cfg.kernels)
         self.stats["write_seconds"] += time.perf_counter() - t0
-        return int(n)
+        return n
 
 
 class SortedOutput(CountOutput):
@@ -399,18 +382,13 @@ class SortKmerCounter(SortedOutput):
         if len(self._buf):
             self.finish()
 
-    def dump(self):
-        """(keys (N, W) uint32 sorted, counts (N,) int64) of all distinct
-        k-mers, before abundance filtering and clipping.  Flushes
-        buffered input first."""
+    def dump_columns(self):
+        """The store's live rows as one dump part, on the device (sorted,
+        before abundance filtering and clipping).  Flushes buffered input
+        first."""
         self._flush()
         self._merge()
-        return self._dump_device()
-
-    def _dump_device(self):
-        """Store rows -> host (keys (N, words) uint32, counts int64),
-        without flushing; rows with count 0 are dropped."""
-        return live_rows_to_host(self.prefix, self.n_used, self.cfg.words)
+        return [store_part(self.prefix, self.n_used)]
 
     # -- checkpoint / resume (the kaarme_tpu .npz format) --------------------
 
@@ -422,7 +400,7 @@ class SortKmerCounter(SortedOutput):
         tail = self._buf.take_all()
         self._launch(final=True)
         self._drain()
-        keys, cnt = self._dump_device()
+        keys, cnt = rows_to_host([store_part(self.prefix, self.n_used)])
         cols = {f"col{i}": keys[:, i] for i in range(self.cfg.words)}
         cols[f"col{self.cfg.words}"] = cnt.astype(np.int32)
         np.savez_compressed(

@@ -57,7 +57,7 @@ import torch.distributed as dist
 
 from ..io import fastio
 from ..io import reader as io_reader
-from ..models.sort_counter import CountOutput, live_rows_to_host
+from ..models.sort_counter import CountOutput, rows_to_host, store_part
 from ..ops.sortcount import next_store_size
 from ..utils import codec
 from ..utils.convert import store_from_numpy
@@ -527,13 +527,12 @@ class MultiHostSortCounter(ShardedSortCounter):
         if self._exchanged:
             raise RuntimeError("cannot checkpoint after finalize")
         self._merge()
-        parts = [live_rows_to_host(p, nd, self.cfg.words) for p, nd in zip(self.prefix, self._nd)]
+        keys, counts = rows_to_host([store_part(p, nd) for p, nd in zip(self.prefix, self._nd)])
         tmp = f"{path}.part{self.pid}.tmp.npz"
         np.savez_compressed(
             tmp, kind="multihost_sort", k=self.cfg.k, mode=self.cfg.mode,
             min_abundance=self.cfg.min_abundance,
-            keys=np.concatenate([k for k, _ in parts]),
-            counts=np.concatenate([c for _, c in parts]),
+            keys=keys, counts=counts,
             windows_processed=self.stats["windows_processed"], num_parts=self.nproc)
         os.replace(tmp, f"{path}.part{self.pid}.npz")
         dist.barrier(group=self.mesh.host_group)

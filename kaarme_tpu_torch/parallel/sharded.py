@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..io import reader as io_reader
-from ..models.sort_counter import CountOutput, pack_chunk, to_device
+from ..models.sort_counter import CountOutput, pack_chunk, rows_to_host, to_device
 from ..models.tiling import TileBatcher
 from ..ops import sortcount
 from ..ops import table as table_ops
@@ -242,12 +242,16 @@ class ShardedKmerCounter(CountOutput):
         tk = np.concatenate([t.cpu().numpy().view(np.uint32) for t, _ in self.tables])
         return tk, np.concatenate([c.cpu().numpy() for _, c in self.tables])
 
+    def dump_columns(self):
+        """The table as one dump part per shard, in shard and slot order,
+        each on its shard's device (empty slots have count 0 and write
+        nothing)."""
+        return [(tuple(tk.unbind(1)), cn) for tk, cn in self.tables]
+
     def dump(self):
         """(kmers (N, W) uint32, counts (N,) int32) of occupied slots in
         slot order (shard by shard), before filtering and clipping."""
-        tk, cn = self._host_table()
-        occ = cn > 0
-        return tk[occ], cn[occ]
+        return rows_to_host(self.dump_columns(), np.int32)
 
     def occupancy(self):
         occ = sum(int((c > 0).sum()) for _, c in self.tables)

@@ -32,8 +32,8 @@ import torch
 
 from ..io import codebuf
 from ..io import reader as io_reader
-from ..models.sort_counter import (SortedOutput, live_rows_to_host, pack_chunk, sized_store,
-                                   to_device)
+from ..models.sort_counter import (SortedOutput, pack_chunk, rows_to_host, sized_store,
+                                   store_part, to_device)
 from ..ops import sortcount
 from ..utils import codec
 from ..utils.convert import store_from_numpy
@@ -296,14 +296,13 @@ class ShardedSortCounter(SortedOutput):
         """Per shard, after the exchange: (keys (N, W) uint32 sorted,
         counts (N,) int64) of the records it owns."""
         self.finalize_exchange()
-        w = codec.words_per_kmer(self.cfg.k)
-        return [live_rows_to_host(p, nd, w) for p, nd in zip(self.prefix, self._nd)]
+        return [rows_to_host([store_part(p, nd)]) for p, nd in zip(self.prefix, self._nd)]
 
-    def dump(self):
-        """(keys (N, W) uint32 sorted, counts (N,) int64) of all distinct
-        k-mers across shards, before filtering and clipping.  The shards'
-        records are gathered on the first device and sorted there: a host
-        lexsort of millions of multi-word rows costs seconds (PERF.md)."""
+    def dump_columns(self):
+        """All distinct k-mers across shards as one dump part, before
+        filtering and clipping: the shards' records gathered on the first
+        device and sorted there (a host lexsort of millions of multi-word
+        rows costs seconds, PERF.md), then written from there."""
         self.finalize_exchange()
         w = codec.words_per_kmer(self.cfg.k)
         dev = self.devices[0]
@@ -311,7 +310,7 @@ class ShardedSortCounter(SortedOutput):
                 for i in range(w + 1)]
         with on_device(dev):
             rows = sortcount.lexsort(cols, num_keys=w)
-        return live_rows_to_host(tuple(rows.unbind(0)), rows.shape[1], w)
+        return [(tuple(rows[:w].unbind(0)), rows[w])]
 
     def occupancy(self):
         """(live records over all shards, ndev x per-shard capacity)."""
@@ -331,15 +330,13 @@ class ShardedSortCounter(SortedOutput):
         if self._exchanged:
             raise RuntimeError("cannot checkpoint after finalize")
         self._merge()
-        parts = [live_rows_to_host(p, nd, self.cfg.words)
-                 for p, nd in zip(self.prefix, self._nd)]
+        keys, counts = rows_to_host([store_part(p, nd) for p, nd in zip(self.prefix, self._nd)])
         tail = self._buf.take_all()
         self._buf.append(tail)
         np.savez_compressed(
             path, kind="sharded_sort", k=self.cfg.k, mode=self.cfg.mode,
             min_abundance=self.cfg.min_abundance,
-            keys=np.concatenate([k for k, _ in parts]),
-            counts=np.concatenate([c for _, c in parts]), tail=tail,
+            keys=keys, counts=counts, tail=tail,
             windows_processed=self.stats["windows_processed"])
 
     @classmethod

@@ -870,3 +870,124 @@ def test_two_shards_on_one_card_equal_cpu_shards(dev, route):
         runs[devices[0]] = (shards, dict(c.stats, build_seconds=0, exchange_seconds=0,
                                          write_seconds=0))
     assert runs[dev] == runs["cpu"]
+
+
+def _w1_part(k, n, seed, dev, cnt_dtype=torch.int32, layout="store"):
+    """n rows of random key words and counts over the digit boundaries,
+    16383/16384, 65535/65536/131072 and dead rows, on the card: key
+    columns as a store's rows ((W + 1, n) buffer: li = 1) or as a table's
+    slot rows ((n, W) buffer: li = W)."""
+    rng = np.random.default_rng(seed)
+    W = (k + 15) // 16
+    edges = [0, 1, 9, 10, 99, 100, 999, 1000, 9999, 10000, 16383, 16384, 65535, 65536, 131072]
+    cnt = rng.choice(edges + list(range(1, 40)), n).astype(np.int64)
+    words = rng.integers(0, 1 << 32, (W, n), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    if layout == "store":
+        buf = torch.from_numpy(np.concatenate([words, cnt[None].astype(np.int32)])).to(dev)
+        keys = tuple(buf[:W].unbind(0))
+    else:
+        buf = torch.from_numpy(np.ascontiguousarray(words.T)).to(dev)
+        keys = tuple(buf.unbind(1))
+    return keys, torch.from_numpy(cnt).to(dev, cnt_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["store", "table"])
+@pytest.mark.parametrize("k,n", [(2, 1025), (13, 1 << 16), (16, 1023), (17, 1024), (33, 1),
+                                 (51, 300_000), (201, 5000)])
+def test_w1_equals_plain(dev, k, n, layout):
+    """W1 == its plain version on the card, byte for byte and line count,
+    in both modes, int32 and int64 counts, thresholds -1, 0 and 2."""
+    from kaarme_tpu_torch.ops import writer
+
+    for cnt_dtype in (torch.int32, torch.int64):
+        keys, cnt = _w1_part(k, n, k + n, dev, cnt_dtype, layout)
+        for mode in (0, 2):
+            for abu in (-1, 0, 2):
+                kw = dict(k=k, mode=mode, min_abundance=abu)
+                launches = writer.format_lines.launches
+                got, lines = writer.format_lines(keys, cnt, **kw)
+                want, want_lines = writer.format_lines_plain(keys, cnt, **kw)
+                torch.cuda.synchronize()
+                assert writer.format_lines.launches == launches + 1
+                assert got.device.type == "cuda"
+                assert lines == want_lines and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["store", "table"])
+def test_w1_lines_longer_than_a_window(dev, layout):
+    """k=40,000: every line spans windows of W1's 16 KB staging buffer."""
+    from kaarme_tpu_torch.ops import writer
+
+    keys, cnt = _w1_part(40_000, 100, 7, dev, layout=layout)
+    got, lines = writer.format_lines(keys, cnt, k=40_000, mode=2, min_abundance=1)
+    want, want_lines = writer.format_lines_plain(keys, cnt, k=40_000, mode=2, min_abundance=1)
+    assert lines == want_lines > 0 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_w1_empty_parts(dev):
+    """No rows (no launch), and every row dead or filtered: empty text."""
+    from kaarme_tpu_torch.ops import writer
+
+    keys, cnt = _w1_part(51, 0, 1, dev)
+    launches = writer.format_lines.launches
+    text, lines = writer.format_lines(keys, cnt, k=51, mode=2, min_abundance=1)
+    assert text.numel() == lines == 0 and writer.format_lines.launches == launches
+    keys, cnt = _w1_part(51, 3000, 2, dev)
+    for c, abu in ((torch.zeros_like(cnt), -1), (cnt.clamp(max=5), 6)):
+        text, lines = writer.format_lines(keys, c, k=51, mode=2, min_abundance=abu)
+        assert text.numel() == lines == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_lines", [1, 7, 1000, None])
+def test_w1_chunked_write_equals_plain(dev, tmp_path, chunk_lines):
+    """write_lines on the card (W1, the pinned host buffer) in chunks of
+    1, 7 and 1000 lines' budget and in one piece, over several parts,
+    == the plain route's file."""
+    from kaarme_tpu_torch.ops import writer
+
+    k = 31
+    parts = [_w1_part(k, n, n, dev, layout=lay)
+             for n, lay in ((2500, "store"), (0, "store"), (1, "table"), (4097, "table"))]
+    budget = writer.CHUNK_BYTES if chunk_lines is None else chunk_lines * writer.line_bytes(k)
+    a, b = tmp_path / "k.txt", tmp_path / "p.txt"
+    kw = dict(k=k, mode=0, min_abundance=0, chunk_bytes=budget)
+    writer.format_lines.launches = 0
+    n = writer.write_lines(str(a), parts, **kw)
+    assert writer.format_lines.launches >= 3
+    writer.format_lines.launches = 0
+    assert writer.write_lines(str(b), parts, kernels="plain", **kw) == n
+    assert writer.format_lines.launches == 0
+    assert a.read_bytes() == b.read_bytes() and a.read_bytes().count(b"\n") == n > 6000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [[], ["--pipeline", "classic"], ["--backend", "table"]],
+                         ids=["skm", "classic", "table"])
+def test_cli_writes_through_w1(dev, tmp_path, extra):
+    """Every route's count file is assembled by W1 on the card (and by
+    the plain version under --kernels plain: no launch), byte for byte
+    the same (the table's sorted)."""
+    from kaarme_tpu_torch.ops import writer
+
+    rng = np.random.default_rng(23)
+    genome = rng.integers(0, 4, 30_000)
+    starts = rng.integers(0, 30_000 - 150, 2000)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "r.fa", "wb") as f:
+        for i, s0 in enumerate(starts):
+            f.write(b">r%d\n%s\n" % (i, lut[genome[s0:s0 + 150]].tobytes()))
+    a, b = tmp_path / "k.txt", tmp_path / "p.txt"
+    argv = [str(tmp_path / "r.fa"), "31", "-s", "100000", "-m", "0", "-a", "1", "-q"] + extra
+    writer.format_lines.launches = 0
+    assert cli.main(argv + ["-o", str(a)]) == 0
+    assert writer.format_lines.launches >= 1
+    writer.format_lines.launches = 0
+    assert cli.main(argv + ["-o", str(b), "--kernels", "plain"]) == 0
+    assert writer.format_lines.launches == 0
+    assert sorted(a.read_bytes().splitlines()) == sorted(b.read_bytes().splitlines())
+    if "table" not in extra:
+        assert a.read_bytes() == b.read_bytes()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one card, in turns, on chip_smoke's inputs.
 
-    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|table OTHER_ROOT [--reps 5]
+    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|table|w1 OTHER_ROOT [--reps 5]
 
 Run from the repository root.  Times a kernel of this checkout and of the
 checkout at OTHER_ROOT (for example the parent commit, unpacked with
@@ -36,7 +36,17 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
   150 bp reads at 30x, written once and shared by the four processes);
   ``ms`` holds the median milliseconds of ``count_file`` (wall) and of
   its device steps (``stats["build_seconds"]``), the digest is the
-  sorted dump's.
+  sorted dump's;
+- w1: not one kernel but the count file's write step, from the counted
+  store to the closed file, on the same FASTA: the k=51 skm route's
+  finalized store and the k=13 classic route's store (each counted once
+  per process by the CLI at ``-s 8000000 -a 1``, which also warms the
+  write up).  A checkout with ``ops/writer.py`` times ``write_lines`` on
+  its ``dump_columns()`` (W1 on the card, the text through one pinned
+  buffer); one without it times the host path it ran before W1:
+  ``live_rows_to_host`` + ``_format_lines``, kept below as private
+  copies.  ``ms`` holds the median host milliseconds of the step, the
+  digest is the file's SHA-256.
 
 Where a checkout's K1, K3 or K5 takes codes (before its chunk-input
 kernel), the timed call is ``sortcount.codes_from_chunk`` followed by it,
@@ -236,7 +246,7 @@ def table_worker(root: str, reps: int) -> dict:
     import numpy as np
     from kaarme_tpu_torch.models.counter import CounterConfig, KmerCounter
 
-    path = os.environ["KT_TABLE_FASTA"]
+    path = os.environ["KT_FASTA"]
     walls, steps = [], []
     for _ in range(reps + 1):           # the first run warms up
         t0 = time.perf_counter()
@@ -252,6 +262,102 @@ def table_worker(root: str, reps: int) -> dict:
                                       int((cn[order] * np.arange(1, cn.shape[0] + 1)).sum())]})
 
 
+def _host_live_rows(cols, nd: int, words: int):
+    """The host path before W1 (``models/sort_counter.live_rows_to_host``):
+    the first ``nd`` store rows to the host, count-0 rows dropped."""
+    import numpy as np
+    import torch
+
+    if not nd:
+        return np.zeros((0, words), np.uint32), np.zeros((0,), np.int64)
+    keys = torch.stack([c[:nd] for c in cols[:-1]], 1).cpu().numpy().view(np.uint32)
+    cnt = cols[-1][:nd].cpu().numpy().astype(np.int64)
+    live = cnt > 0
+    return keys[live], cnt[live]
+
+
+def _host_format_lines(tk, cn, k: int) -> bytes:
+    """The host path before W1 (``models/sort_counter._format_lines``):
+    one numpy byte matrix, the unused leading digit cells dropped."""
+    import numpy as np
+
+    n, W = tk.shape
+    base4 = np.frombuffer(b"ACGT", np.uint8)[(np.arange(256)[:, None] >> [6, 4, 2, 0]) & 3]
+    lut16 = np.concatenate([np.repeat(base4, 256, 0), np.tile(base4, (256, 1))], 1)
+    halves = tk.astype(">u4").view(">u2").astype(np.uint16).reshape(n, 2 * W)
+    D = len(str(int(cn.max())))
+    m = np.empty((n, k + D + 2), np.uint8)
+    m[:, :k] = np.take(lut16, halves, axis=0).reshape(n, 16 * W)[:, :k]
+    m[:, k] = ord(" ")
+    v = cn.astype(np.int64)
+    for j in range(k + D, k, -1):
+        m[:, j] = ord("0") + v % 10
+        v //= 10
+    m[:, -1] = ord("\n")
+    ndig = np.ones(n, np.int64)
+    for j in range(1, D):
+        ndig += cn >= 10 ** j
+    keep = np.ones(m.shape, bool)
+    keep[:, k + 1: k + 1 + D] = np.arange(D)[None, :] >= (D - ndig)[:, None]
+    return m[keep].tobytes()
+
+
+def w1_worker(root: str, reps: int) -> dict:
+    """The count file's write step on the k=51 skm and k=13 classic
+    stores (``w1`` above)."""
+    import hashlib
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+    from kaarme_tpu_torch import cli
+
+    path = os.environ["KT_FASTA"]
+    new = importlib.util.find_spec("kaarme_tpu_torch.ops.writer") is not None
+    out = dict(root=root, api="write_lines (W1)" if new else
+               "live_rows_to_host + _format_lines (host)", ms={}, digest={})
+    with tempfile.TemporaryDirectory() as tmp:
+        dst = os.path.join(tmp, "counts.txt")
+        for name, k in (("k51_skm", 51), ("k13_classic", 13)):
+            rc, counter = cli.run([path, str(k), "-s", "8000000", "-a", "1", "-q", "-o", dst])
+            if rc:
+                raise RuntimeError(f"w1 {name}: the CLI exited {rc}")
+            cfg = counter.cfg
+            if new:
+                from kaarme_tpu_torch.ops import writer
+
+                def step():
+                    return writer.write_lines(dst, counter.dump_columns(), k=cfg.k,
+                                              mode=cfg.mode, min_abundance=cfg.min_abundance)
+            else:
+                def step():
+                    if hasattr(counter, "finalize_device"):
+                        cols, nd = counter.finalize_device()
+                    else:
+                        cols, nd = counter.prefix, counter.n_used
+                    tk, cn = _host_live_rows(cols, nd, (k + 15) // 16)
+                    cn = cn & 0xFFFF if cfg.mode == 0 else np.minimum(cn, 16383)
+                    keep = cn >= cfg.min_abundance
+                    tk, cn = tk[keep], cn[keep]
+                    with open(dst, "wb") as f:
+                        if tk.shape[0]:
+                            f.write(_host_format_lines(tk, cn, k))
+                    return int(tk.shape[0])
+            times = []
+            for _ in range(reps + 1):           # the first run warms up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lines = step()
+                times.append(time.perf_counter() - t0)
+            with open(dst, "rb") as f:
+                out["digest"][name] = [hashlib.sha256(f.read()).hexdigest(), lines]
+            out["ms"][name] = statistics.median(times[1:]) * 1e3
+            del counter
+            torch.cuda.empty_cache()
+    return out
+
+
 def worker(kernel: str, root: str, reps: int) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -262,6 +368,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
     _build.lib()
     if kernel == "table":
         return table_worker(root, reps)
+    if kernel == "w1":
+        return w1_worker(root, reps)
     if kernel == "t1":
         return t1_worker(cs, dev, root, reps)
     api, calls = {"k1": k1_calls, "k2": k2_calls, "k3": k3_calls, "k4": k4_calls,
@@ -280,7 +388,7 @@ def worker(kernel: str, root: str, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "t1", "table"),
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "t1", "table", "w1"),
                     required=True)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
@@ -294,9 +402,9 @@ def main() -> int:
     out = []
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ)
-        if a.kernel == "table":
-            env["KT_TABLE_FASTA"] = os.path.join(tmp, "reads.fa")
-            cs.write_reads_fasta(env["KT_TABLE_FASTA"], 4_600_000, 30)
+        if a.kernel in ("table", "w1"):
+            env["KT_FASTA"] = os.path.join(tmp, "reads.fa")
+            cs.write_reads_fasta(env["KT_FASTA"], 4_600_000, 30)
         for root in (other, HERE, HERE, other):
             res = subprocess.run([sys.executable, os.path.abspath(__file__), root, "--kernel",
                                   a.kernel, "--reps", str(a.reps), "--worker"],
