@@ -65,16 +65,20 @@ Run from the repository root.  It builds the port's CUDA kernels from
    the classic route with and without the merge (count files == the
    ``-a 1`` file without its count-1 lines); each with the launch
    counters of its kernels > 0 (K3 exactly once per dispatched classic
-   superstep and Bloom pass-1 superstep, K4 once per merge superstep)
-   and its peak device memory printed; then the probe table
-   (``--backend table``, written in slot order, so compared sorted by
-   ``utils/compare.py``): k=51 (== the skm route's file), the same with
-   ``--kernels plain`` (== the kernel run; T1 never launched), k=13 (==
-   the classic k=13 file, counts summing to the valid windows) and
-   ``-b -u 5000000 -a 2`` (== the skm route's ``-b`` file), T1 launched
-   once per batch (and twice per grow event), K3 once per batch (and
-   per Bloom pass-1 batch and grow event), and no ``hash_words`` call
-   on the kernel runs without ``-b``;
+   superstep and Bloom pass-1 superstep, K4 once per merge superstep,
+   B1 once per pass-1 superstep, B2 once per classic pass-2 superstep
+   and at least once in the skm finalize) and its peak device memory
+   printed, and no call of ``hash_words``, ``torch.unique`` or
+   ``bloom.set_bits`` (the torch chain B1 and B2 replace); then the
+   probe table (``--backend table``, written in slot order, so compared
+   sorted by ``utils/compare.py``): k=51 (== the skm route's file), the
+   same with ``--kernels plain`` (== the kernel run; T1 never launched),
+   k=13 (== the classic k=13 file, counts summing to the valid windows)
+   and ``-b -u 5000000 -a 2`` (== the skm route's ``-b`` file), T1
+   launched once per batch (and twice per grow event), K3 once per batch
+   (and per Bloom pass-1 batch and grow event), B1 and B2 once per batch
+   of the ``-b`` run, and no ``hash_words``, ``torch.unique`` or
+   ``set_bits`` call on any kernel run;
 9. the sharded counters (``kaarme_tpu_torch/parallel``, ``--devices``)
    on the same full-size file through the library, sized as the CLI
    sizes ``--devices N -s 8000000 -a 1``, with N shards on cuda:0 (the
@@ -120,7 +124,23 @@ Run from the repository root.  It builds the port's CUDA kernels from
    chunk's kernel and device-to-host milliseconds.  Every count file
    of items 7-10 is written by W1 (its launch counter > 0 on every
    kernel run, 0 under ``--kernels plain``), so their comparisons hold
-   it end to end.
+   it end to end;
+12. B1 and B2 (``kaarme_tpu_torch/ops/cuda_bloom.py``: the ``-b`` pass-1
+   insert and pass-2 gate) against their plain versions (the torch
+   hash, ``torch.unique`` and bit planes of ``ops/bloom.py``; the torch
+   gate) at the full phase's filter size (``-u 5000000``: 2^28 bits a
+   stage, 7 hash functions): the table's pass-1 loop over 63 batches of
+   2^20 k=51 windows, each step (K3 + B1) under
+   ``torch.cuda.set_sync_debug_mode("error")`` (it makes no host
+   synchronisation) beside the plain route's step, BF1, BF2 and the
+   summed counters equal; then the next batch and one 2^26-window sort
+   superstep (after the superstep before it): B1 == plain on both
+   stages' words and both counters, B2 == plain on the key words, each
+   timed from fresh copies with its bound (the 4W key bytes, each
+   distinct 32 B filter sector the valid keys' words lie in read once
+   and each changed one written once; B2 the words of the keys it
+   gates); and a 2^10-bit filter under heavy collision, poly-A (one
+   root 2^20 times), k=201 and k=13 on 777 windows, two batches each.
 
 Each kernel phase also computes the kernel's bound at its shape: the
 least time the card could take, each input byte read once and each
@@ -130,8 +150,9 @@ launched once per superstep and replay.  Each phase raises on failure
 (non-zero exit).  The last lines are the kernel table as JSON (with
 each kernel's bound, its share and ``library_ms``: null, as no single
 PyTorch call computes any of these functions; T1, which is not a TPU
-kernel but replaces the JAX package's XLA probe rounds, and W1, which
-replaces its host numpy writer, have their entries too), the card's
+kernel but replaces the JAX package's XLA probe rounds, W1, which
+replaces its host numpy writer, and B1 and B2, which replace its XLA
+Bloom filter ops, have their entries too), the card's
 name and power limit, and {"ok": true, "device": {...}}.  Exits
 non-zero without a CUDA device, and where the port has imported jax or
 kaarme_tpu.
@@ -139,6 +160,7 @@ kaarme_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import filecmp
 import json
 import os
@@ -998,6 +1020,215 @@ def t1_overfull(dev):
           f"finds every stored key; {'; '.join(done)}")
 
 
+BLOOM_U = 5_000_000        # -u of the full phase's -b runs: 2^28 bits a stage, 7 hash functions
+
+
+def filter_words(keys, nwords: int):
+    """Each valid key's filter word index (r1 & (nwords - 1), int64): the
+    roots from the plain ``hash_words64``, validity as K3 writes it."""
+    from kaarme_tpu_torch.ops import hashing, sortcount
+
+    valid = sortcount._is_sentinel_i32(keys) == 0
+    r1, _ = hashing.hash_words64(keys)
+    return (r1 & (nwords - 1))[valid]
+
+
+def changed_sectors(before, after) -> int:
+    """32 B sectors of a filter whose words differ between two states."""
+    import torch
+
+    return torch.unique(torch.nonzero(before != after).flatten() >> 3).numel()
+
+
+def b1_bound(keys, hfn: int, f0, f1) -> dict:
+    """B1's least time on a batch: the 4W key bytes of every window read
+    once, each distinct 32 B sector of both stages that the valid keys'
+    words lie in read once and each changed one written once (filters f0
+    before, f1 after), the two counters written once; against about 20
+    operations a key word (two murmur3 blocks), 16 for the finalizers and
+    3 a hash function per window."""
+    import torch
+
+    n, W = keys[0].shape[0], len(keys)
+    read = torch.unique(filter_words(keys, f0[0].shape[0]) >> 3).numel()
+    written = changed_sectors(f0[0], f1[0]) + changed_sectors(f0[1], f1[1])
+    nbytes = 4 * W * n + 32 * (2 * read + written) + 16
+    ops = float(n * (20 * W + 16 + 3 * hfn))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
+                "operations", bound_bytes=nbytes, bound_ops=ops, sectors_read=read,
+                sectors_written=written)
+
+
+def b2_bound(keys, gated, hfn: int, bf2) -> dict:
+    """B2's least time on a batch: the 4W key bytes read once, each
+    distinct BF2 sector the valid keys' words lie in read once, and the
+    words of the keys it turned all-ones written once; operations as B1's."""
+    from kaarme_tpu_torch.ops import sortcount
+
+    n, W = keys[0].shape[0], len(keys)
+    read = filter_words(keys, bf2.shape[0])
+    missed = int(sortcount._is_sentinel_i32(gated).sum() - sortcount._is_sentinel_i32(keys).sum())
+    nbytes = 4 * W * n + 32 * int((read >> 3).unique().numel()) + 4 * W * missed
+    ops = float(n * (20 * W + 16 + 3 * hfn))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
+                "operations", bound_bytes=nbytes, bound_ops=ops, missed=missed)
+
+
+def bloom_pair(dev, bits: int, keys, hfn: int, f0, scratch, label: str, timed_run: bool):
+    """B1 and B2 against their plain versions on one batch of key
+    columns: B1 from copies of the filters f0 (BF words and both counters
+    equal), then B2 on copies of the keys against the BF2 after the
+    insert (key words equal).  With ``timed_run``, both kernels and both
+    plain versions are timed from fresh copies, with their bounds."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_bloom
+
+    kf = [f.clone() for f in f0]
+    pf = [f.clone() for f in f0]
+    got = cuda_bloom.bloom_insert(kf[0], kf[1], keys, hfn, scratch)
+    want = cuda_bloom.bloom_insert_plain(pf[0], pf[1], keys, hfn)
+    e1 = max_abs_err(kf + [got[0].reshape(1), got[1].reshape(1)],
+                     pf + [want[0].reshape(1), want[1].reshape(1)])
+    if e1:
+        raise AssertionError(f"B1 {label}: kernel != plain (max abs err {e1}): counters "
+                             f"{[int(x) for x in got]} vs {[int(x) for x in want]}")
+    base = torch.stack([k.to(torch.int32) for k in keys])
+    gk = cuda_bloom.bloom_gate(kf[1], tuple(base.clone().unbind(0)), hfn)
+    gp = cuda_bloom.bloom_gate_plain(kf[1], tuple(base.clone().unbind(0)), hfn)
+    e2 = max_abs_err(gk, gp)
+    if e2:
+        raise AssertionError(f"B2 {label}: kernel != plain (max abs err {e2})")
+    res = dict(max_abs_err=max(e1, e2), new=[int(x) for x in got], filters=kf)
+    if timed_run:
+        fresh = lambda: tuple(f.clone() for f in f0)
+        b1 = b1_bound(keys, hfn, f0, kf)
+        b2 = b2_bound(keys, gk, hfn, kf[1])
+        gate_fresh = lambda: (tuple(base.clone().unbind(0)),)
+        res.update(
+            b1=dict(ms=cuda_ms_fresh(fresh, lambda a, b: cuda_bloom.bloom_insert(
+                        a, b, keys, hfn, scratch)),
+                    plain_ms=cuda_ms_fresh(fresh, lambda a, b: cuda_bloom.bloom_insert_plain(
+                        a, b, keys, hfn)), **b1),
+            b2=dict(ms=cuda_ms_fresh(gate_fresh, lambda k: cuda_bloom.bloom_gate(kf[1], k, hfn)),
+                    plain_ms=cuda_ms_fresh(gate_fresh, lambda k: cuda_bloom.bloom_gate_plain(
+                        kf[1], k, hfn)), **b2))
+    return res
+
+
+def phase_bloom(dev):
+    """B1 (the -b pass-1 insert) and B2 (the pass-2 gate) against their
+    plain versions (docstring item 12)."""
+    import torch
+    from kaarme_tpu_torch.models import bloom_counter
+    from kaarme_tpu_torch.ops import bloom, cuda_bloom, sortcount
+
+    bits, hfn, _, _ = bloom_counter.make_filters(BLOOM_U, 0.01, "cpu")
+    per = TABLE_TILE * TABLE_BATCH_TILES
+    before = 63
+    codes = read_stream(dev, 4_600_000, (before + 1) * per + K - 1, n_every=100_003)
+    # the table's pass-1 loop, the step (K3 + B1) under sync debug "error":
+    # any host synchronisation inside it raises; the plain route's step
+    # (unpack, plain K3, torch hash, unique and bit planes) beside it
+    kf = [bloom.make_bloom(bits, dev) for _ in range(2)]
+    pf = [bloom.make_bloom(bits, dev) for _ in range(2)]
+    scratch = cuda_bloom.scratch_for(per, dev)
+    new_k, new_p = [0, 0], [0, 0]
+    cuda_bloom.bloom_insert.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(before):
+        packed, seps, _ = chunk_of(codes[b * per: (b + 1) * per + K - 1])
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, n1, n2 = sortcount.bloom_pass1_superstep(kf[0], kf[1], packed, seps, k=K,
+                                                           n=per, hfn=hfn, scratch=scratch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        new_k = [new_k[0] + n1, new_k[1] + n2]
+        _, _, n1, n2 = sortcount.bloom_pass1_superstep(pf[0], pf[1], packed, seps, k=K, n=per,
+                                                       hfn=hfn, kernels="plain")
+        new_p = [new_p[0] + n1, new_p[1] + n2]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    err = max_abs_err(kf + [torch.stack(new_k)], pf + [torch.stack(new_p)])
+    if err or cuda_bloom.bloom_insert.launches != before:
+        raise AssertionError(f"B1 table pass-1 loop: kernel route != plain route (max abs err "
+                             f"{err}), {cuda_bloom.bloom_insert.launches} launches")
+    print(f"B1 table pass-1 loop: {before} batches of {per} windows at k={K}, {bits} bits x 2, "
+          f"{hfn} hash functions: K3 + B1 under torch.cuda.set_sync_debug_mode('error') (no "
+          f"host synchronisation), BF1, BF2 and counters {[int(x) for x in new_k]} == the plain "
+          f"route's; both routes {loop_s:.3f} s")
+    del pf
+    keys = table_batch(codes, before, K)()
+    del codes
+    main = bloom_pair(dev, bits, keys, hfn, kf, scratch, f"table batch k={K}", True)
+    main.pop("filters")
+    out = {"table": main}
+    del keys, kf, main
+    torch.cuda.empty_cache()
+
+    # one sort superstep of 2^26 windows (the sort routes' pass 1), from
+    # the filters after the superstep before it
+    codes = read_stream(dev, 4_600_000, 2 * N_WINDOWS + K - 1, n_every=100_003)
+    scratch = cuda_bloom.scratch_for(N_WINDOWS, dev)
+    sf = [bloom.make_bloom(bits, dev) for _ in range(2)]
+    for s in range(2):
+        packed, seps, _ = chunk_of(codes[s * N_WINDOWS: (s + 1) * N_WINDOWS + K - 1])
+        keys = sortcount.window_keys_from_chunk(packed, seps, k=K, n=N_WINDOWS)
+        del packed, seps
+        res = bloom_pair(dev, bits, keys, hfn, sf, scratch, f"superstep {s} k={K}", s == 1)
+        sf = res.pop("filters")
+        del keys
+        torch.cuda.empty_cache()
+    out["superstep"] = res
+    del codes, sf, scratch
+    torch.cuda.empty_cache()
+
+    # edge cases: a 2^10-bit filter under heavy collision, poly-A (one
+    # root 2^20 times), k=201 and k=13 on a tail of no whole block
+    edges = []
+    for label, k, n, ebits, reads in (("2^10-bit filter k=31", 31, per, 1 << 10, 150),
+                                      (f"poly-A k={K}", K, per, bits, 0),
+                                      ("k=201", 201, 100_003, 1 << 20, 300),
+                                      ("k=13 tail", 13, 777, 1 << 16, 150)):
+        f = [bloom.make_bloom(ebits, dev) for _ in range(2)]
+        for b in range(2):
+            if reads:
+                c = read_stream(dev, 20_000, 2 * n + k - 1, read_len=reads, n_every=9_973)
+                c = c[b * n: (b + 1) * n + k - 1]
+            else:
+                c = torch.zeros(n + k - 1, dtype=torch.int32, device=dev)
+            packed, seps, _ = chunk_of(c)
+            keys = sortcount.window_keys_from_chunk(packed, seps, k=k, n=n)
+            res = bloom_pair(dev, ebits, keys, hfn, f, cuda_bloom.scratch_for(n, dev),
+                             f"{label} batch {b}", False)
+            f = res["filters"]
+        edges.append(f"{label}: counters {res['new']}")
+    print(f"B1, B2 edge cases, kernel == plain over two batches each: {'; '.join(edges)}")
+
+    for name, r in out.items():
+        for kern in ("b1", "b2"):
+            d = r[kern]
+            print(f"{kern.upper()} {name} k={K}: kernel {d['ms']:.3f} ms, plain {d['plain_ms']:.3f} "
+                  f"ms, bound {d['bound_ms']:.4f} ms ({d['bound_by']}: {d['bound_bytes']} B, "
+                  f"{d['bound_ops']:.0f} ops" + (f"; {d['sectors_read']} sectors of each stage "
+                                                 f"read, {d['sectors_written']} written"
+                                                 if kern == "b1" else
+                                                 f"; {d['missed']} keys gated") + ")"
+                  + (f"; counters {r['new']}" if kern == "b1" else ""))
+    keys_of = ("bound_ms", "bound_by", "bound_bytes", "bound_ops")
+    err = max(r["max_abs_err"] for r in out.values())
+    return [dict(max_abs_err=err, ms=out["table"][kern]["ms"],
+                 plain_ms=out["table"][kern]["plain_ms"],
+                 superstep_ms=out["superstep"][kern]["ms"],
+                 superstep_plain_ms=out["superstep"][kern]["plain_ms"],
+                 superstep_bound_ms=out["superstep"][kern]["bound_ms"],
+                 **{key: out["table"][kern][key] for key in keys_of})
+            for kern in ("b1", "b2")]
+
+
 def write_reads_fasta(path, genome_len: int, coverage: int, read_len: int = 150,
                       seed: int = SEED):
     """The reference's example shape (examples/make_example.py): a random
@@ -1071,8 +1302,8 @@ def phase_small(tmp):
 
 
 def launch_counters():
-    from kaarme_tpu_torch.ops import (cuda_compact, cuda_merge, cuda_skm, cuda_table,
-                                      cuda_winkeys, writer)
+    from kaarme_tpu_torch.ops import (cuda_bloom, cuda_compact, cuda_merge, cuda_skm,
+                                      cuda_table, cuda_winkeys, writer)
 
     return {"skm_dense": cuda_skm.run_rows_dense,
             "segsum_compact": cuda_compact.segsum_compact,
@@ -1080,7 +1311,38 @@ def launch_counters():
             "merge_compact": cuda_merge.merge_compact,
             "skm_slotted": cuda_skm.run_rows_slotted,
             "table_insert": cuda_table.table_insert,
-            "format_lines": writer.format_lines}
+            "format_lines": writer.format_lines,
+            "bloom_insert": cuda_bloom.bloom_insert,
+            "bloom_gate": cuda_bloom.bloom_gate}
+
+
+@contextlib.contextmanager
+def plain_bloom_calls():
+    """Counts, while the block runs, the calls of what B1 and B2 replace
+    on the -b path: ``hashing.hash_words`` (its own counter),
+    ``torch.unique`` and ``ops/bloom.set_bits`` (wrapped for the block).
+    Yields the dict of counts, filled in when the block ends."""
+    import torch
+    from kaarme_tpu_torch.ops import bloom, hashing
+
+    counts = {"hash_words": 0, "torch.unique": 0, "set_bits": 0}
+    saved = [(torch, "unique", torch.unique), (bloom, "set_bits", bloom.set_bits)]
+
+    def counting(key, fn):
+        def wrapper(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    torch.unique = counting("torch.unique", torch.unique)
+    bloom.set_bits = counting("set_bits", bloom.set_bits)
+    hashing.hash_words.calls = 0
+    try:
+        yield counts
+    finally:
+        counts["hash_words"] = hashing.hash_words.calls
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
 
 
 def slotted_count(argv, out_path: str, S=None):
@@ -1180,19 +1442,25 @@ def same_file(a: str, b: str, what: str):
 
 def check_launches(counter, launches, label: str, route: str, bloom: bool = False):
     """K3 and K4 launched once per dispatched superstep of their route
-    (replays included), K3 also once per Bloom pass-1 superstep."""
+    (replays included), K3 also once per Bloom pass-1 superstep; with -b,
+    B1 once per pass-1 superstep and B2 once per pass-2 gate: per
+    dispatched classic superstep, at least once in the skm finalize."""
     st = counter.stats
     steps = st["batches"] + st["replayed_supersteps"]
     pass1 = st.get("pass1_batches", 0) if bloom else 0
+    # the skm finalize gates each expansion chunk: at least one
+    gate = max(launches["bloom_gate"], 1) if route == "skm" else steps
     want = {"window_keys": pass1 + (0 if route == "skm" else steps),
-            "merge_compact": steps if route == "merge" else 0}
+            "merge_compact": steps if route == "merge" else 0,
+            "bloom_insert": pass1,
+            "bloom_gate": gate if bloom else 0}
     got = {name: launches[name] for name in want}
     if got != want:
         raise AssertionError(f"{label}: launches {got} != {want} ({st['batches']} supersteps, "
                              f"{st['replayed_supersteps']} replayed, {pass1} pass-1 supersteps)")
-    print(f"full size {label}: window_keys launched {got['window_keys']} times, merge_compact "
-          f"{got['merge_compact']} ({st['batches']} supersteps + {st['replayed_supersteps']} "
-          f"replayed" + (f", {pass1} pass-1 supersteps" if bloom else "") + ")")
+    print(f"full size {label}: launches {got} ({st['batches']} supersteps + "
+          f"{st['replayed_supersteps']} replayed" + (f", {pass1} pass-1 supersteps" if bloom
+                                                      else "") + ")")
 
 
 def same_counts(a: str, b: str, what: str):
@@ -1212,34 +1480,37 @@ def table_runs(path: str, out, n_reads: int, distinct: int):
     run), k=13 (== the classic k=13 file; counts sum to the valid
     windows), and -b -u 5000000 -a 2 (== the skm -b file).  T1 launched
     once per batch (plus two per grow) and K3 once per batch, pass-1
-    batch and grow on the kernel runs, neither on the plain one.  Returns
-    T1's launches in the k=51 run."""
-
-    from kaarme_tpu_torch.ops import hashing
+    batch and grow on the kernel runs, B1 and B2 once per batch of the
+    -b run, none of them on the plain one.  Returns
+    T1's launches in the k=51 run and (B1, B2)'s in the -b run."""
 
     def run(argv, label, plain=False):
-        hashing.hash_words.calls = 0
-        counter, launches = run_full(argv + (["--kernels", "plain"] if plain else []), label,
-                                     () if plain else ("table_insert", "window_keys"))
-        st, t1, k3 = counter.stats, launches["table_insert"], launches["window_keys"]
-        bloom = "new_in_second" in st
-        want = (0, 0) if plain else (st["batches"] + 2 * st["grow_events"],
-                                     st["batches"] * (2 if bloom else 1) + st["grow_events"])
-        if (t1, k3) != want:
-            raise AssertionError(f"{label}: T1 launched {t1} times, K3 {k3}, for "
+        bloom = "-b" in argv
+        uses = ("table_insert", "window_keys") + (("bloom_insert", "bloom_gate") if bloom else ())
+        with plain_bloom_calls() as calls:
+            counter, launches = run_full(argv + (["--kernels", "plain"] if plain else []), label,
+                                         () if plain else uses)
+        st = counter.stats
+        got = tuple(launches[u] for u in uses)
+        # pass 1 runs the table's batches: as many as pass 2's
+        want = (0,) * len(uses) if plain else (
+            st["batches"] + 2 * st["grow_events"],
+            st["batches"] * (2 if bloom else 1) + st["grow_events"]) + (st["batches"],) * (
+                2 if bloom else 0)
+        if got != want:
+            raise AssertionError(f"{label}: launches of {uses}: {got} != {want} for "
                                  f"{st['batches']} batches ({'and as many pass-1 batches, ' if bloom else ''}"
                                  f"{st['grow_events']} grow events)")
-        # T1 hashes in the kernel: no host hash on the count step (the -b
-        # gate's Bloom hashes and the plain route's hashes are torch ops)
-        calls = hashing.hash_words.calls
-        if not (plain or bloom) and calls:
-            raise AssertionError(f"{label}: the count step called hash_words {calls} times")
-        print(f"full size {label}: hash_words called {calls} times"
-              + ("" if plain or bloom else " (T1 hashes in the kernel)"))
-        return counter, t1
+        # T1, B1 and B2 hash in the kernels: no torch hash, unique or bit
+        # plane on the kernel route (the plain route's are torch ops)
+        if not plain and any(calls.values()):
+            raise AssertionError(f"{label}: the count step called {calls}")
+        print(f"full size {label}: launches of {uses} {got}; {calls}"
+              + ("" if plain else " (T1, B1 and B2 hash in the kernels)"))
+        return counter, got
 
     argv = [path, str(K), "-s", "8000000", "-a", "1", "-q", "--backend", "table"]
-    counter, t1 = run(argv + ["-o", out("table")], f"k={K} --backend table")
+    counter, (t1, _) = run(argv + ["-o", out("table")], f"k={K} --backend table")
     _, cnt = counter.dump()
     used = counter.occupancy()[0]
     if used != distinct or int(cnt.sum()) != n_reads * (150 - K + 1):
@@ -1260,12 +1531,13 @@ def table_runs(path: str, out, n_reads: int, distinct: int):
     same_counts(out("k13"), out("table_k13"), "k=13 --backend table == classic")
 
     argv = [path, str(K), "-b", "-u", "5000000", "-a", "2", "-q", "--backend", "table"]
-    counter, _ = run(argv + ["-o", out("table_bloom")], f"k={K} -b -u 5000000 -a 2 --backend table")
+    counter, got = run(argv + ["-o", out("table_bloom")],
+                       f"k={K} -b -u 5000000 -a 2 --backend table")
     if not 0 < counter.stats["new_in_second"]:
         raise AssertionError("table -b: no second occurrences")
     del counter
     same_counts(out("bloom_skm"), out("table_bloom"), f"k={K} -b --backend table == skm -b")
-    return t1
+    return t1, got[2:]
 
 
 def phase_full(tmp):
@@ -1353,6 +1625,7 @@ def phase_full(tmp):
     with open(out("skm"), "rb") as f, open(out("ge2"), "wb") as g:
         g.writelines(ln for ln in f if not ln.endswith(b" 1\n"))
     bloom = [path, str(K), "-b", "-u", "5000000", "-a", "2", "-q"]
+    bloom_launches = {}
     for name, route, extra, uses in (
             ("bloom_skm", "skm", [], ("window_keys", "skm_dense", "segsum_compact")),
             ("bloom_classic", "classic", ["--pipeline", "classic"],
@@ -1360,10 +1633,16 @@ def phase_full(tmp):
             ("bloom_merge", "merge", ["--pipeline", "classic", "--compactor", "merge"],
              ("window_keys", "merge_compact"))):
         label = f"k={K} -b -u 5000000 -a 2 {' '.join(extra) or 'skm'}"
-        counter, launches = run_full(bloom + extra + ["-o", out(name)], label, uses)
+        with plain_bloom_calls() as calls:
+            counter, launches = run_full(bloom + extra + ["-o", out(name)], label,
+                                         (*uses, "bloom_insert", "bloom_gate"))
         if counter.bf1 is not None or not 0 < counter.stats["new_in_second"]:
             raise AssertionError(f"{name}: BF1 kept or no second occurrences")
         check_launches(counter, launches, label, route, bloom=True)
+        if any(calls.values()):
+            raise AssertionError(f"{label}: the plain Bloom chain ran: {calls}")
+        print(f"full size {label}: {calls} (B1 and B2 hash in the kernels)")
+        bloom_launches[name] = (launches["bloom_insert"], launches["bloom_gate"])
         del counter
         same_file(out("ge2"), out(name), f"k={K} {name} -a 2 == -a 1 without count-1 lines")
     launches = {"skm_dense": skm_launches["skm_dense"],
@@ -1371,8 +1650,10 @@ def phase_full(tmp):
                 "window_keys": classic_launches["window_keys"],
                 "merge_compact": merge_launches["merge_compact"],
                 "skm_slotted": slotted_launches["skm_slotted"],
-                "table_insert": table_runs(path, out, n_reads, distinct),
                 "format_lines": skm_launches["format_lines"]}
+    launches["table_insert"], bloom_launches["table"] = table_runs(path, out, n_reads, distinct)
+    launches["bloom_insert"], launches["bloom_gate"] = bloom_launches["table"]
+    print(f"full size -b runs, (B1, B2) launches: {bloom_launches}")
     files = {"input": path, "skm": out("skm"), "k13": out("k13"), "n_reads": n_reads}
     return launches, files
 
@@ -1945,6 +2226,8 @@ def main() -> int:
         phase_multihost(files, smi)
     torch.cuda.empty_cache()
     w1 = phase_w1(dev)
+    torch.cuda.empty_cache()
+    b1, b2 = phase_bloom(dev)
     leaked = [m for m in sys.modules if m in ("jax", "kaarme_tpu") or m.startswith("kaarme_tpu.")]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -1973,6 +2256,12 @@ def main() -> int:
         dict(name="format_lines", route="cuda", source="kaarme_tpu_torch/csrc/format_lines.cu",
              replaces="kaarme_tpu/models/sort_counter.py:495",
              launches=launches["format_lines"], **timed(w1)),
+        dict(name="bloom_insert", route="cuda", source="kaarme_tpu_torch/csrc/bloom.cu",
+             replaces="kaarme_tpu/ops/bloom.py:141", launches=launches["bloom_insert"],
+             **timed(b1)),
+        dict(name="bloom_gate", route="cuda", source="kaarme_tpu_torch/csrc/bloom.cu",
+             replaces="kaarme_tpu/ops/sortcount.py:771", launches=launches["bloom_gate"],
+             **timed(b2)),
     ]}
     print(json.dumps(table))
     print(smi)

@@ -13,7 +13,7 @@
 //   invalid key, and what the -b Bloom gate writes into a missed key; no
 //   canonical key is all-ones).  A caller may pass its own mask instead
 //   (grow-and-retry passes its pending set);
-// - the slot hash: murmur3_x86_32, seed 0x9747B28C, final length 4W, bit
+// - the slot hash: murmur3_x86_32 (murmur3.cuh), seed 0x9747B28C, final length 4W, bit
 //   for bit ops/hashing.hash_words (a caller may pass it: the sharded
 //   table has it from routing);
 // - warp aggregation: among the warp's valid lanes, __match_any_sync over
@@ -81,6 +81,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "murmur3.cuh"
+
 namespace t1 {
 
 constexpr int THREADS = 256;
@@ -99,24 +101,6 @@ __device__ __forceinline__ void fence_acq_rel() {
 
 __device__ __forceinline__ void st_release(int* p, int v) {
     asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// murmur3_x86_32, one 32-bit block and the finalizer (ops/hashing.py).
-__device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t x) {
-    x *= 0xCC9E2D51u;
-    x = (x << 15) | (x >> 17);
-    x *= 0x1B873593u;
-    h ^= x;
-    h = (h << 13) | (h >> 19);
-    return h * 5u + 0xE6546B64u;
-}
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-    h ^= h >> 16;
-    h *= 0x85EBCA6Bu;
-    h ^= h >> 13;
-    h *= 0xC2B2AE35u;
-    return h ^ (h >> 16);
 }
 
 // One window's key: its first R words in registers, the rest (W > R) read
@@ -206,23 +190,23 @@ __global__ void __launch_bounds__(THREADS)
     uint32_t h = 0;
     int amt = 0;
     if (in) {
-        uint32_t hh = 0x9747B28Cu, ones = 0xffffffffu;
+        uint32_t hh = murmur3::SEED_LO, ones = 0xffffffffu;
 #pragma unroll
         for (int w = 0; w < R; ++w) {
             key.r[w] = 0;
             if (w < W) {
                 key.r[w] = __ldg(key.col + w * lw);
                 ones &= key.r[w];
-                hh = mix(hh, key.r[w]);
+                hh = murmur3::mix(hh, key.r[w]);
             }
         }
         for (int w = R; w < W; ++w) {
             const uint32_t x = key.far(w);
             ones &= x;
-            hh = mix(hh, x);
+            hh = murmur3::mix(hh, x);
         }
         act = valid ? valid[i] != 0 : ones != 0xffffffffu;
-        h = hin ? hin[i] : fmix32(hh ^ (4u * (uint32_t)W));
+        h = hin ? hin[i] : murmur3::finish(hh, W);
         amt = amount ? amount[i] : 1;
     }
     const unsigned live = __ballot_sync(FULL, act);

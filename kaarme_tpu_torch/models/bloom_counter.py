@@ -21,7 +21,8 @@ Singletons never reach the final store; false positives only admit
 singletons that the min-abundance threshold drops.  Both backends size
 the filters alike (``make_filters``) and run the same pass-1 step
 (``sortcount.bloom_pass1_superstep``: K3 on the transfer chunk, then the
-filter insert), each over its own batches: the table's tile batches, the
+filter insert, B1, with one scratch allocated per pass; the pass-2 gate
+is B2), each over its own batches: the table's tile batches, the
 sort backend's supersteps.  BF words and both counters equal the JAX
 package's at equal batch sizes (tile and batch_tiles on the table,
 superstep sizes on the sort backend): the batch boundaries decide which
@@ -37,7 +38,7 @@ import numpy as np
 
 from ..io import reader as io_reader
 from ..ops import bloom as bloom_ops
-from ..ops import sortcount
+from ..ops import cuda_bloom, sortcount
 from ..utils.device import resolve_device
 from ..utils.mathutils import bloom_sizing
 from .counter import CounterConfig, KmerCounter
@@ -94,13 +95,16 @@ def bloom_pass1(cfg: BloomCounterConfig, chunks):
     new1 = new2 = 0        # device scalars after the first batch: one sync at the end
     t0 = time.perf_counter()
     batcher = TileBatcher(cfg.k, cfg.tile, cfg.batch_tiles)
+    # B1's scratch, allocated once for every batch (None off a card)
+    scratch = (cuda_bloom.scratch_for(cfg.tile * cfg.batch_tiles, dev)
+               if cfg.kernels == "cuda" else None)
 
     def run(batch):
         nonlocal bf1, bf2, new1, new2
         packed, sep, n, dense = pack_chunk(batch, cfg.tile * cfg.batch_tiles)
         bf1, bf2, n1, n2 = sortcount.bloom_pass1_superstep(
             bf1, bf2, to_device(packed, dev), to_device(sep, dev), k=cfg.k, n=n, dense=dense,
-            hfn=hfn, kernels=cfg.kernels)
+            hfn=hfn, kernels=cfg.kernels, scratch=scratch)
         new1 = new1 + n1
         new2 = new2 + n2
 
@@ -116,8 +120,8 @@ def bloom_pass1(cfg: BloomCounterConfig, chunks):
         "new_in_second": int(new2),
         "bloom_pass_seconds": time.perf_counter() - t0,
     }
-    # squeeze: BF1 is no longer needed once sizing is known
-    del bf1
+    # squeeze: BF1 and B1's scratch are no longer needed once sizing is known
+    del bf1, scratch
     return bf2, hfn, stats
 
 
@@ -168,6 +172,7 @@ class _TwoPassBloom:
         bits, self.hfn, self.bf1, self.bf2 = make_filters(expected_unique, fpr, self.device)
         self._phase = 1
         self._n12 = []
+        self._scratch = None      # B1's, allocated at the first pass-1 superstep
         self.stats.update({"bloom_bits": bits, "bloom_hash_functions": self.hfn,
                            "new_in_first": 0, "new_in_second": 0,
                            "bloom_pass1_seconds": 0.0})
@@ -178,14 +183,17 @@ class _TwoPassBloom:
     def _dispatch(self, packed_d, sep_d, n: int, dense: bool):
         if self._phase != 1:
             return super()._dispatch(packed_d, sep_d, n, dense)
+        if self.cfg.kernels == "cuda":
+            self._scratch = cuda_bloom.scratch_for(n, self.device, self._scratch)
         self.bf1, self.bf2, n1, n2 = sortcount.bloom_pass1_superstep(
             self.bf1, self.bf2, packed_d, sep_d, k=self.cfg.k, n=n, dense=dense,
-            hfn=self.hfn, kernels=self.cfg.kernels)
+            hfn=self.hfn, kernels=self.cfg.kernels, scratch=self._scratch)
         self._n12.append((n1, n2))
 
     def start_pass2(self):
         """Finish pass 1: record the exactly-once counters, reset the
-        stream statistics and drop BF1 (the reference's squeeze)."""
+        stream statistics and drop BF1 (the reference's squeeze) and B1's
+        scratch."""
         if self._phase != 1:
             raise RuntimeError("start_pass2 called twice")
         self.finish()
@@ -195,7 +203,7 @@ class _TwoPassBloom:
         self.stats["pass1_batches"] = self.stats["batches"]
         self.stats["batches"] = 0
         self.stats["windows_processed"] = 0
-        self.bf1 = None
+        self.bf1 = self._scratch = None
         self._phase = 2
 
     def count_codes_two_pass(self, codes: np.ndarray):

@@ -19,7 +19,9 @@ scatter-OR either, so ``set_bits`` scatters into a bit plane (one bool
 per filter bit; duplicate writes all write True) and packs it back into
 words.  ``insert_batch`` ranks duplicate keys within a batch by
 ``torch.unique`` counts instead of an in-segment ordinal; both are
-exact, so the results are the JAX package's.
+exact, so the results are the JAX package's.  These are the plain
+definitions: on the card the pass-1 insert and the pass-2 gate run as
+the kernels B1 and B2 (``ops/cuda_bloom.py``), held to them.
 """
 
 from __future__ import annotations

@@ -43,7 +43,8 @@ def fmix32(h: torch.Tensor) -> torch.Tensor:
 def hash_words(words, seed: int = 0x9747B28C) -> torch.Tensor:
     """murmur3_x86_32 over a sequence of W word columns of one shape.
     ``hash_words.calls`` counts the calls (chip_smoke checks that the
-    probe table's count step makes none: T1 hashes in the kernel)."""
+    probe table's count step and the ``-b`` path make none: T1, B1 and
+    B2 hash in the kernels)."""
     hash_words.calls += 1
     h = torch.full(words[0].shape, seed, dtype=torch.int64, device=words[0].device)
     for w in words:

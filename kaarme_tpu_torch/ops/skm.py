@@ -23,9 +23,9 @@ import torch
 from ..utils.codec import words_per_kmer
 from . import cuda_skm
 from .cuda_skm import EBITS, LMAX, M, content_words
-from .sortcount import (M32, _bloom_miss_mask, _is_sentinel_i32, _kernel_finish,
-                        _pairrev32, compact_clamped, dead_fill, i32,
-                        lexsort, make_store, next_store_size, u32)
+from .sortcount import (M32, _is_sentinel_i32, _kernel_finish, _pairrev32, bloom_gate,
+                        compact_clamped, dead_fill, i32, lexsort, make_store,
+                        next_store_size, u32)
 
 
 def store_words(k: int) -> int:
@@ -138,29 +138,28 @@ def _expand_keys(cw, ell, k: int):
                  .masked_fill(dead, M32).reshape(-1) for wi in range(W))
 
 
-def expand_chunk(run_cols, k: int, bloom=None, hfn: int = 0):
+def expand_chunk(run_cols, k: int, bloom=None, hfn: int = 0, kernels: str = "cuda"):
     """(Wc content cols, meta col, count col) -> W int32 key columns +
     int32 count column over R * LMAX rows, unsorted.  Dead run rows
     (count 0) and slots past ell become sentinel keys with count 0, and
     so do keys that miss the Bloom filter ``bloom`` (int32 words, ``hfn``
     bits per key) when one is given: a run row packs up to LMAX windows,
-    so the two-pass mode's per-window gate applies here, where windows
-    materialize."""
+    so the two-pass mode's per-window gate (``sortcount.bloom_gate``)
+    applies here, where windows materialize."""
     *cw, meta, cnt = run_cols
     ell = ((u32(meta) >> EBITS) & 15) + 1
     keys = _expand_keys([u32(c) for c in cw], ell, k)
     dead = (cnt <= 0).repeat_interleave(LMAX)
     keys = tuple(i32(x.masked_fill(dead, M32)) for x in keys)
     if bloom is not None:
-        miss = _bloom_miss_mask(bloom, keys, hfn)
-        keys = tuple(x | miss for x in keys)
+        keys = bloom_gate(bloom, keys, hfn, kernels)
     counts = cnt.repeat_interleave(LMAX) * (1 - _is_sentinel_i32(keys))
     return keys + (counts,)
 
 
 def _expand_compact(run_cols, k: int, kernels: str, bloom=None, hfn: int = 0):
     """Single-shot finalize: expand every run row and sum equal keys."""
-    return compact_clamped(expand_chunk(run_cols, k, bloom, hfn), kernels)
+    return compact_clamped(expand_chunk(run_cols, k, bloom, hfn, kernels), kernels)
 
 
 def _expand_merge_at(acc, run_cols, start: int, *, k: int, chunk: int, kernels: str,
@@ -168,7 +167,7 @@ def _expand_merge_at(acc, run_cols, start: int, *, k: int, chunk: int, kernels: 
     """Chunked finalize step: expand ``chunk`` run rows from ``start``
     and merge them into the accumulator (cut to its capacity)."""
     part = tuple(c[start: start + chunk] for c in run_cols)
-    rows = expand_chunk(part, k, bloom, hfn)
+    rows = expand_chunk(part, k, bloom, hfn, kernels)
     cap = acc[0].shape[0]
     store, ndv = compact_clamped(tuple(torch.cat([a, r]) for a, r in zip(acc, rows)),
                                  kernels)

@@ -206,8 +206,8 @@ def window_keys_from_chunk(packed, sep, *, k: int, n: int, dense: bool = False,
     (``kernels="cuda"``), or the unpack then the plain K3 (``"plain"``).
     With a Bloom filter ``bloom`` (int32 words, ``hfn`` bits per key),
     keys that miss it become all-ones too, so they drop out of the merge
-    as invalid windows do.  The counterpart of
-    ``sortcount._keys_from_chunk`` plus the supersteps'
+    as invalid windows do (``bloom_gate``: B2 or its plain version).  The
+    counterpart of ``sortcount._keys_from_chunk`` plus the supersteps'
     ``_bloom_miss_mask`` gate."""
     from . import cuda_winkeys
 
@@ -218,8 +218,7 @@ def window_keys_from_chunk(packed, sep, *, k: int, n: int, dense: bool = False,
         keys = cuda_winkeys.window_keys_torch(
             codes_from_chunk(packed, sep, k=k, n=n, dense=dense), k, n)
     if bloom is not None:
-        miss = _bloom_miss_mask(bloom, keys, hfn)
-        keys = tuple(x | miss for x in keys)
+        keys = bloom_gate(bloom, keys, hfn, kernels)
     return keys
 
 
@@ -276,7 +275,7 @@ def superstep_merged(packed, sep, prefix, *, k: int, n: int, ebits: int = 0,
     keys = list(window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
                                        bloom=bloom, hfn=hfn))
     if embedded:
-        keys[w - 1] = keys[w - 1] | 1
+        keys[w - 1] |= 1        # in place: the window keys are a fresh buffer
         a = torch.stack(list(prefix[:w - 1]) + [prefix[w - 1] | prefix[-1]])
     else:
         a = torch.stack(list(prefix))
@@ -295,29 +294,37 @@ def superstep_merged(packed, sep, prefix, *, k: int, n: int, ebits: int = 0,
 # Here a missing key turns into the all-ones sentinel row before the
 # sort, exactly like an invalid window (``window_keys_from_chunk``).
 
-def _bloom_miss_mask(bf2, keys, hfn: int) -> torch.Tensor:
-    """int32 all-ones where the key's hfn Bloom bits are NOT all set in
-    ``bf2``, else 0 (one gather per key: the blocked layout)."""
-    from .bloom import contains
-    from .hashing import hash_words64
+def bloom_gate(bf2, keys, hfn: int, kernels: str = "cuda") -> tuple:
+    """The pass-2 gate: every word of a key whose hfn Bloom bits are NOT
+    all set in ``bf2`` becomes all-ones, in place (the reference's
+    ``_bloom_miss_mask`` ORed into the keys).  ``kernels``: "cuda" -> B2's
+    wrapper (``cuda_bloom.bloom_gate``: the kernel on CUDA tensors, its
+    plain version on CPU ones), "plain" -> the plain version everywhere.
+    Returns the gated key columns."""
+    from . import cuda_bloom
 
-    r1, r2 = hash_words64(keys)
-    return torch.where(contains(bf2, r1, r2, hfn), 0, -1).to(torch.int32)
+    check_kernels(kernels)
+    fn = cuda_bloom.bloom_gate if kernels == "cuda" else cuda_bloom.bloom_gate_plain
+    return fn(bf2, keys, hfn)
 
 
 def bloom_pass1_superstep(bf1, bf2, packed, sep, *, k: int, n: int, dense: bool = False,
-                          hfn: int = 4, kernels: str = "cuda"):
+                          hfn: int = 4, kernels: str = "cuda", scratch=None):
     """Pass-1 superstep: window keys from the chunk (K3) -> BF1/BF2 insertion
-    of every valid window's root hash.  Returns (bf1, bf2,
-    new_in_first, new_in_second), the counters as int64 tensors."""
-    from .bloom import insert_batch
-    from .hashing import hash_words64
+    of every valid window's root hash, in place: B1 (``cuda_bloom.
+    bloom_insert``, given ``scratch`` from ``cuda_bloom.scratch_for``) under
+    ``kernels="cuda"``, its plain version (the torch hash and
+    ``bloom.insert_batch``) under "plain".  Returns (bf1, bf2,
+    new_in_first, new_in_second), the counters as 0-d int64 tensors; no
+    host synchronisation on the kernel route."""
+    from . import cuda_bloom
 
     keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels)
-    # invalid windows are all-ones in EVERY word; a canonical key never is
-    valid = _is_sentinel_i32(keys) == 0
-    r1, r2 = hash_words64(keys)
-    return insert_batch(bf1, bf2, r1, r2, valid, hfn)
+    if kernels == "cuda":
+        n1, n2 = cuda_bloom.bloom_insert(bf1, bf2, keys, hfn, scratch)
+    else:
+        n1, n2 = cuda_bloom.bloom_insert_plain(bf1, bf2, keys, hfn)
+    return bf1, bf2, n1, n2
 
 
 # ---------------------------------------------------------------------------

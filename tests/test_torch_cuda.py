@@ -187,13 +187,20 @@ def test_bloom_cli_kernels_equal_plain_route(dev, tmp_path, k, extra):
     with open(tmp_path / "r.fa", "wb") as f:
         for i, s0 in enumerate(starts):
             f.write(b">r%d\n%s\n" % (i, lut[genome[s0:s0 + 150]].tobytes()))
+    from kaarme_tpu_torch.ops import cuda_bloom
+
     argv = [str(tmp_path / "r.fa"), str(k), "-q"] + extra
     a, b, c = tmp_path / "b.txt", tmp_path / "p.txt", tmp_path / "a1.txt"
-    cuda_winkeys.window_keys.launches = 0
+    kernels = (cuda_winkeys.window_keys, cuda_bloom.bloom_insert, cuda_bloom.bloom_gate)
+    for fn in kernels:
+        fn.launches = 0
     assert cli.main(argv + ["-b", "-u", "40000", "-a", "2", "-o", str(a)]) == 0
-    assert cuda_winkeys.window_keys.launches > 0
+    assert all(fn.launches > 0 for fn in kernels)
+    for fn in kernels:
+        fn.launches = 0
     assert cli.main(argv + ["-b", "-u", "40000", "-a", "2", "-o", str(b),
                             "--kernels", "plain"]) == 0
+    assert all(fn.launches == 0 for fn in kernels)
     assert a.read_bytes() == b.read_bytes()
     assert cli.main(argv + ["-s", "100000", "-a", "1", "-o", str(c)]) == 0
     want = b"".join(ln + b"\n" for ln in c.read_bytes().splitlines()
@@ -818,11 +825,16 @@ def test_table_cli_kernels_equal_plain_route(dev, tmp_path, extra):
     with open(tmp_path / "r.fa", "wb") as f:
         for i, s0 in enumerate(starts):
             f.write(b">r%d\n%s\n" % (i, lut[genome[s0:s0 + 150]].tobytes()))
+    from kaarme_tpu_torch.ops import cuda_bloom
+
     a, b = tmp_path / "k.txt", tmp_path / "p.txt"
     argv = [str(tmp_path / "r.fa"), "31", "-a", "1", "-q", "--backend", "table"] + extra
     cuda_table.table_insert.launches = cuda_winkeys.window_keys.launches = 0
+    cuda_bloom.bloom_insert.launches = cuda_bloom.bloom_gate.launches = 0
     assert cli.main(argv + ["-o", str(a)]) == 0
     assert cuda_table.table_insert.launches > 0 and cuda_winkeys.window_keys.launches > 0
+    bloom = "-b" in extra
+    assert (cuda_bloom.bloom_insert.launches > 0) == (cuda_bloom.bloom_gate.launches > 0) == bloom
     cuda_table.table_insert.launches = cuda_winkeys.window_keys.launches = 0
     assert cli.main(argv + ["-o", str(b), "--kernels", "plain"]) == 0
     assert cuda_table.table_insert.launches == cuda_winkeys.window_keys.launches == 0
@@ -991,3 +1003,92 @@ def test_cli_writes_through_w1(dev, tmp_path, extra):
     assert sorted(a.read_bytes().splitlines()) == sorted(b.read_bytes().splitlines())
     if "table" not in extra:
         assert a.read_bytes() == b.read_bytes()
+
+
+def _read_chunk(n, k, seed, genome_len, poly_a=False):
+    """The transfer chunk (2-bit words, dense bitmap) of n windows of reads
+    of max(150, 2k) bases sampled (from ``seed``) from one random genome of
+    ``genome_len`` bases, a separator after each read; ``poly_a``: n + k -
+    1 A's, no separator."""
+    rng = np.random.default_rng(seed)
+    L = n + k - 1
+    if poly_a:
+        bases, inv = np.zeros(L, np.uint8), np.zeros(L, bool)
+    else:
+        rl = max(150, 2 * k)
+        genome = np.random.default_rng(genome_len).integers(0, 4, genome_len).astype(np.uint8)
+        starts = rng.integers(0, genome_len - rl, -(-L // (rl + 1)))
+        reads = np.concatenate([genome[starts[:, None] + np.arange(rl)],
+                                np.full((starts.shape[0], 1), 4, np.uint8)], 1).reshape(-1)[:L]
+        bases, inv = np.where(reads == 4, 0, reads).astype(np.uint8), reads == 4
+    packed, _ = fastio.pack_stream_np(bases)
+    _, mask = fastio.pack_stream_np(inv.astype(np.uint8) * 4)
+    return packed, mask
+
+
+# (k, n, filter bits, genome length): the table batch at the CLI's -u
+# 5000000 sizing (2^28 bits), a 2^10-bit filter under heavy collision,
+# poly-A (one root 2^20 times), k=201, and a tail n of no whole block
+_BLOOM_CASES = {"table_k51": (51, 1 << 20, 1 << 28, 200_000),
+                "small_filter": (31, 100_000, 1 << 10, 50_000),
+                "poly_a": (51, 1 << 20, 1 << 20, 0),
+                "k201": (201, 100_003, 1 << 20, 30_000),
+                "tail": (13, 777, 1 << 16, 2_000)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_BLOOM_CASES))
+def test_b1_equals_plain(dev, case):
+    """B1 (the pass-1 insert) against its plain version over three
+    batches of K3 key columns, each version updating its own filters from
+    the same start: equal BF1 and BF2 words and counters after every
+    batch; one scratch serves every batch; no host synchronisation."""
+    from kaarme_tpu_torch.ops import bloom, cuda_bloom
+
+    k, n, bits, glen = _BLOOM_CASES[case]
+    kf = [bloom.make_bloom(bits, dev) for _ in range(2)]
+    pf = [bloom.make_bloom(bits, dev) for _ in range(2)]
+    scratch = cuda_bloom.scratch_for(n, dev)
+    cuda_bloom.bloom_insert.launches = 0
+    for b in range(3):
+        packed, mask = _read_chunk(n, k, seed=b, genome_len=glen, poly_a=case == "poly_a")
+        keys = cuda_winkeys.window_keys(_dev(packed, dev), _dev(mask, dev), k=k, n=n, dense=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = cuda_bloom.bloom_insert(kf[0], kf[1], keys, 7, scratch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = cuda_bloom.bloom_insert_plain(pf[0], pf[1], keys, 7)
+        assert [int(x) for x in got] == [int(x) for x in want]
+        assert torch.equal(kf[0], pf[0]) and torch.equal(kf[1], pf[1])
+    assert cuda_bloom.bloom_insert.launches == 3
+    assert int(pf[1].ne(0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["k3", "separate"])
+@pytest.mark.parametrize("case", list(_BLOOM_CASES))
+def test_b2_equals_plain(dev, case, layout):
+    """B2 (the pass-2 gate) against its plain version on K3 key columns
+    gated by a BF2 that holds the keys of the batch before: equal key
+    words (missed keys all-ones, invalid ones still all-ones); in place
+    on K3's buffer."""
+    from kaarme_tpu_torch.ops import bloom, cuda_bloom
+
+    k, n, bits, glen = _BLOOM_CASES[case]
+    bf1, bf2 = bloom.make_bloom(bits, dev), bloom.make_bloom(bits, dev)
+    batches = [_read_chunk(n, k, seed=b, genome_len=glen, poly_a=case == "poly_a")
+               for b in range(2)]
+    keys = [cuda_winkeys.window_keys(_dev(p, dev), _dev(m, dev), k=k, n=n, dense=True)
+            for p, m in batches]
+    cuda_bloom.bloom_insert(bf1, bf2, keys[0], 7)
+    cuda_bloom.bloom_insert(bf1, bf2, keys[0], 7)      # every key of batch 0 in BF2
+    cols = keys[1] if layout == "k3" else tuple(x.clone() for x in keys[1])
+    want = cuda_bloom.bloom_gate_plain(bf2, tuple(x.clone() for x in cols), 7)
+    cuda_bloom.bloom_gate.launches = 0
+    got = cuda_bloom.bloom_gate(bf2, cols, 7)
+    assert cuda_bloom.bloom_gate.launches == 1
+    if layout == "k3":
+        assert all(g.data_ptr() == c.data_ptr() for g, c in zip(got, cols))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one card, in turns, on chip_smoke's inputs.
 
-    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|table|w1 OTHER_ROOT [--reps 5]
+    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|bloom|table|w1 OTHER_ROOT [--reps 5]
 
 Run from the repository root.  Times a kernel of this checkout and of the
 checkout at OTHER_ROOT (for example the parent commit, unpacked with
@@ -30,6 +30,17 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
   ``valid`` and ``h`` (before T1 derived them), the timed call is the
   chain it ran: the sentinel mask, ``hashing.hash_words``, then T1; the
   digest is the sorted occupied (key row, count) pairs;
+- bloom: the -b path's steps from K3's key columns at the CLI's ``-b -u
+  5000000`` filter size (2^28 bits a stage, 7 hash functions): the
+  table's pass-1 insert into both stages and its pass-2 gate against
+  BF2, on one 2^20-window batch of k=51 reads after the 63 batches before
+  it, a poly-A batch after one poly-A batch, and a k=13 batch after 7
+  batches, each timed from fresh copies of its filters (the insert) or
+  of its key columns (the gate).  A checkout with ``ops/cuda_bloom.py``
+  runs B1 and B2; one without it runs the torch chain it ran before them
+  (the sentinel mask, ``hash_words64`` and ``bloom.insert_batch``; the
+  gate ``_bloom_miss_mask`` ORed into the keys); the digest is the
+  filters and counters after the insert and the gated keys;
 - table: not one kernel but the probe-table route around T1: a
   ``KmerCounter`` (k=51, ``min_slots`` 8,000,000, the CLI's table
   configuration) counting chip_smoke's full-size FASTA (4.6 Mb genome,
@@ -238,6 +249,65 @@ def t1_worker(cs, dev, root: str, reps: int) -> dict:
     return out
 
 
+def bloom_worker(cs, dev, root: str, reps: int) -> dict:
+    """The -b pass-1 step and pass-2 gate from K3's key columns (``bloom``
+    above), CUDA-event medians from fresh copies of the filters or keys."""
+    import torch
+    from kaarme_tpu_torch.models import bloom_counter
+    from kaarme_tpu_torch.ops import bloom, hashing, sortcount
+
+    per = cs.TABLE_TILE * cs.TABLE_BATCH_TILES
+    bits, hfn, _, _ = bloom_counter.make_filters(5_000_000, 0.01, "cpu")
+    kernels = importlib.util.find_spec("kaarme_tpu_torch.ops.cuda_bloom") is not None
+    if kernels:
+        from kaarme_tpu_torch.ops import cuda_bloom
+
+        scratch = cuda_bloom.scratch_for(per, dev)
+
+        def insert(bf1, bf2, keys):
+            n1, n2 = cuda_bloom.bloom_insert(bf1, bf2, keys, hfn, scratch)
+            return bf1, bf2, n1, n2
+
+        def gate(bf2, keys):
+            return cuda_bloom.bloom_gate(bf2, keys, hfn)
+    else:
+        def insert(bf1, bf2, keys):
+            valid = sortcount._is_sentinel_i32(keys) == 0
+            r1, r2 = hashing.hash_words64(keys)
+            return bloom.insert_batch(bf1, bf2, r1, r2, valid, hfn)
+
+        def gate(bf2, keys):
+            miss = sortcount._bloom_miss_mask(bf2, keys, hfn)
+            return tuple(x | miss for x in keys)
+
+    out = dict(root=root, api="B1 and B2" if kernels else
+               "sentinel mask + hash_words64 + insert_batch; _bloom_miss_mask", ms={}, digest={})
+    for name, k, before in (("k51", cs.K, 63), ("polyA", cs.K, 0), ("k13", 13, 7)):
+        if before:
+            codes = cs.read_stream(dev, 4_600_000, (before + 1) * per + k - 1, n_every=100_003)
+        else:
+            codes = torch.zeros(2 * per + k - 1, dtype=torch.int32, device=dev)
+        bf1, bf2 = bloom.make_bloom(bits, dev), bloom.make_bloom(bits, dev)
+        for b in range(max(before, 1)):
+            bf1, bf2, _, _ = insert(bf1, bf2, cs.table_batch(codes, b, k)())
+        keys = cs.table_batch(codes, max(before, 1), k)()
+        base = torch.stack(list(keys))
+        del codes
+        fresh = lambda: (bf1.clone(), bf2.clone(), keys)
+        r = insert(*fresh())
+        out["digest"][f"{name}_insert"] = [digest(r[:2]), int(r[2]), int(r[3])]
+        g = gate(r[1], tuple(base.clone().unbind(0)))
+        out["digest"][f"{name}_gate"] = [digest(g)]
+        gated = r[1]
+        del r, g
+        out["ms"][f"{name}_insert"] = cs.cuda_ms_fresh(fresh, insert, reps)
+        out["ms"][f"{name}_gate"] = cs.cuda_ms_fresh(
+            lambda: (gated, tuple(base.clone().unbind(0))), gate, reps)
+        del bf1, bf2, keys, base, gated
+        torch.cuda.empty_cache()
+    return out
+
+
 def table_worker(root: str, reps: int) -> dict:
     """The table route's count of the shared FASTA (``table`` above)."""
     import statistics
@@ -372,6 +442,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
         return w1_worker(root, reps)
     if kernel == "t1":
         return t1_worker(cs, dev, root, reps)
+    if kernel == "bloom":
+        return bloom_worker(cs, dev, root, reps)
     api, calls = {"k1": k1_calls, "k2": k2_calls, "k3": k3_calls, "k4": k4_calls,
                   "k5": k5_calls}[kernel](cs, dev)
     out = dict(root=root, api=api, ms={}, digest={})
@@ -388,7 +460,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "t1", "table", "w1"),
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "t1", "bloom", "table",
+                                         "w1"),
                     required=True)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
