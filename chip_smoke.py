@@ -133,14 +133,21 @@ Run from the repository root.  It builds the port's CUDA kernels from
    2^20 k=51 windows, each step (K3 + B1) under
    ``torch.cuda.set_sync_debug_mode("error")`` (it makes no host
    synchronisation) beside the plain route's step, BF1, BF2 and the
-   summed counters equal; then the next batch and one 2^26-window sort
-   superstep (after the superstep before it): B1 == plain on both
-   stages' words and both counters, B2 == plain on the key words, each
-   timed from fresh copies with its bound (the 4W key bytes, each
-   distinct 32 B filter sector the valid keys' words lie in read once
-   and each changed one written once; B2 the words of the keys it
-   gates); and a 2^10-bit filter under heavy collision, poly-A (one
-   root 2^20 times), k=201 and k=13 on 777 windows, two batches each.
+   summed counters equal; then the next batch and two 2^26-window sort
+   supersteps (the first on empty filters, the second after it): B1 ==
+   plain on both stages' words and both counters, B2 == plain on the
+   key words, each timed from fresh copies with its bound and share (the
+   4W key bytes, each distinct 32 B filter sector the valid keys' words
+   lie in read once and each changed one written once; B2 the words of
+   the keys it gates); their ``ms`` is CUDA events around the call, as
+   for every other kernel, and ``dev_ms`` the card's time alone, their
+   launches queued behind a sleep kernel (``cuda_ms_queued``: at a table
+   batch the host's Python before and between the launches outlasts the
+   kernels); B1's epoch wrap (nine table batches on one scratch, from
+   epochs 1-3 on to EPOCH_MAX - 2 and across the wrap, == plain after
+   each); and a 2^10-bit filter under heavy collision, poly-A (one root
+   2^20 times), k=201 and k=13 on 777 windows, two batches each on one
+   scratch.
 
 Each kernel phase also computes the kernel's bound at its shape: the
 least time the card could take, each input byte read once and each
@@ -879,6 +886,29 @@ def cuda_ms_fresh(prepare, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def cuda_ms_queued(prepare, fn, reps: int = 5) -> float:
+    """Median device milliseconds of ``fn(*prepare())`` (one warm-up): a
+    sleep kernel of about a millisecond goes first, so the host has queued
+    all of ``fn``'s work before the card reaches it, and the events around
+    ``fn`` time the card's work alone, not the host's Python between its
+    launches (which ``cuda_ms_fresh`` includes where it is the longer)."""
+    import torch
+
+    fn(*prepare())
+    times = []
+    for _ in range(reps):
+        args = prepare()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn(*args)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 def phase_t1(dev):
     """T1 (the table insert from K3's key columns: validity and hash in
     the kernel, equal keys aggregated per warp) against its plain version
@@ -1103,17 +1133,18 @@ def bloom_pair(dev, bits: int, keys, hfn: int, f0, scratch, label: str, timed_ru
     res = dict(max_abs_err=max(e1, e2), new=[int(x) for x in got], filters=kf)
     if timed_run:
         fresh = lambda: tuple(f.clone() for f in f0)
-        b1 = b1_bound(keys, hfn, f0, kf)
-        b2 = b2_bound(keys, gk, hfn, kf[1])
         gate_fresh = lambda: (tuple(base.clone().unbind(0)),)
+        b1 = lambda a, b: cuda_bloom.bloom_insert(a, b, keys, hfn, scratch)
+        b2 = lambda k: cuda_bloom.bloom_gate(kf[1], k, hfn)
+        # ms: the call, the host's Python included; dev_ms: the card's time
+        # alone (the launches queued behind a sleep)
         res.update(
-            b1=dict(ms=cuda_ms_fresh(fresh, lambda a, b: cuda_bloom.bloom_insert(
-                        a, b, keys, hfn, scratch)),
+            b1=dict(ms=cuda_ms_fresh(fresh, b1), dev_ms=cuda_ms_queued(fresh, b1),
                     plain_ms=cuda_ms_fresh(fresh, lambda a, b: cuda_bloom.bloom_insert_plain(
-                        a, b, keys, hfn)), **b1),
-            b2=dict(ms=cuda_ms_fresh(gate_fresh, lambda k: cuda_bloom.bloom_gate(kf[1], k, hfn)),
+                        a, b, keys, hfn)), **b1_bound(keys, hfn, f0, kf)),
+            b2=dict(ms=cuda_ms_fresh(gate_fresh, b2), dev_ms=cuda_ms_queued(gate_fresh, b2),
                     plain_ms=cuda_ms_fresh(gate_fresh, lambda k: cuda_bloom.bloom_gate_plain(
-                        kf[1], k, hfn)), **b2))
+                        kf[1], k, hfn)), **b2_bound(keys, gk, hfn, kf[1])))
     return res
 
 
@@ -1169,8 +1200,9 @@ def phase_bloom(dev):
     del keys, kf, main
     torch.cuda.empty_cache()
 
-    # one sort superstep of 2^26 windows (the sort routes' pass 1), from
-    # the filters after the superstep before it
+    # two sort supersteps of 2^26 windows (the sort routes' pass 1): the
+    # first on empty filters (every root ranked in the scratch set), the
+    # second on the filters after the first; one scratch for both
     codes = read_stream(dev, 4_600_000, 2 * N_WINDOWS + K - 1, n_every=100_003)
     scratch = cuda_bloom.scratch_for(N_WINDOWS, dev)
     sf = [bloom.make_bloom(bits, dev) for _ in range(2)]
@@ -1178,12 +1210,37 @@ def phase_bloom(dev):
         packed, seps, _ = chunk_of(codes[s * N_WINDOWS: (s + 1) * N_WINDOWS + K - 1])
         keys = sortcount.window_keys_from_chunk(packed, seps, k=K, n=N_WINDOWS)
         del packed, seps
-        res = bloom_pair(dev, bits, keys, hfn, sf, scratch, f"superstep {s} k={K}", s == 1)
+        res = bloom_pair(dev, bits, keys, hfn, sf, scratch, f"superstep {s} k={K}", True)
         sf = res.pop("filters")
+        out[f"superstep{s}"] = res
         del keys
         torch.cuda.empty_cache()
-    out["superstep"] = res
-    del codes, sf, scratch
+    print(f"B1 scratch for a {N_WINDOWS}-window superstep: {scratch.buf.numel() * 4} B "
+          f"({scratch.slots} slots of 16 B, then the decisions)")
+    del codes, sf, scratch, res
+    torch.cuda.empty_cache()
+
+    # the epoch wrap: one scratch, table batches 0-2 at epochs 1-3, then
+    # from EPOCH_MAX - 2 batches 3-8 across the wrap to 1, whose slots of
+    # epochs 1-3 must be cleared; kernel == plain after every batch
+    codes = read_stream(dev, 4_600_000, 9 * per + K - 1, n_every=100_003)
+    kf = [bloom.make_bloom(bits, dev) for _ in range(2)]
+    pf = [bloom.make_bloom(bits, dev) for _ in range(2)]
+    scratch = cuda_bloom.scratch_for(per, dev)
+    epochs = []
+    for b in range(9):
+        if b == 3:
+            scratch.epoch = cuda_bloom.EPOCH_MAX - 2
+        keys = table_batch(codes, b, K)()
+        got = cuda_bloom.bloom_insert(kf[0], kf[1], keys, hfn, scratch)
+        want = cuda_bloom.bloom_insert_plain(pf[0], pf[1], keys, hfn)
+        epochs.append(scratch.epoch)
+        err = max_abs_err(kf + [torch.stack(got)], pf + [torch.stack(want)])
+        if err:
+            raise AssertionError(f"B1 epoch wrap, batch {b} at epoch {scratch.epoch}: kernel != "
+                                 f"plain (max abs err {err})")
+    print(f"B1 epoch wrap: 9 table batches at epochs {epochs}, kernel == plain after each")
+    del codes, kf, pf, scratch
     torch.cuda.empty_cache()
 
     # edge cases: a 2^10-bit filter under heavy collision, poly-A (one
@@ -1194,6 +1251,7 @@ def phase_bloom(dev):
                                       ("k=201", 201, 100_003, 1 << 20, 300),
                                       ("k=13 tail", 13, 777, 1 << 16, 150)):
         f = [bloom.make_bloom(ebits, dev) for _ in range(2)]
+        scratch = cuda_bloom.scratch_for(n, dev)
         for b in range(2):
             if reads:
                 c = read_stream(dev, 20_000, 2 * n + k - 1, read_len=reads, n_every=9_973)
@@ -1202,8 +1260,7 @@ def phase_bloom(dev):
                 c = torch.zeros(n + k - 1, dtype=torch.int32, device=dev)
             packed, seps, _ = chunk_of(c)
             keys = sortcount.window_keys_from_chunk(packed, seps, k=k, n=n)
-            res = bloom_pair(dev, ebits, keys, hfn, f, cuda_bloom.scratch_for(n, dev),
-                             f"{label} batch {b}", False)
+            res = bloom_pair(dev, ebits, keys, hfn, f, scratch, f"{label} batch {b}", False)
             f = res["filters"]
         edges.append(f"{label}: counters {res['new']}")
     print(f"B1, B2 edge cases, kernel == plain over two batches each: {'; '.join(edges)}")
@@ -1211,8 +1268,11 @@ def phase_bloom(dev):
     for name, r in out.items():
         for kern in ("b1", "b2"):
             d = r[kern]
-            print(f"{kern.upper()} {name} k={K}: kernel {d['ms']:.3f} ms, plain {d['plain_ms']:.3f} "
-                  f"ms, bound {d['bound_ms']:.4f} ms ({d['bound_by']}: {d['bound_bytes']} B, "
+            print(f"{kern.upper()} {name} k={K}: kernel {d['ms']:.4f} ms (on the card "
+                  f"{d['dev_ms']:.4f}), plain {d['plain_ms']:.3f} "
+                  f"ms, bound {d['bound_ms']:.4f} ms, share {d['bound_ms'] / d['ms']:.3f} "
+                  f"(on the card {d['bound_ms'] / d['dev_ms']:.3f}) "
+                  f"({d['bound_by']}: {d['bound_bytes']} B, "
                   f"{d['bound_ops']:.0f} ops" + (f"; {d['sectors_read']} sectors of each stage "
                                                  f"read, {d['sectors_written']} written"
                                                  if kern == "b1" else
@@ -1221,10 +1281,16 @@ def phase_bloom(dev):
     keys_of = ("bound_ms", "bound_by", "bound_bytes", "bound_ops")
     err = max(r["max_abs_err"] for r in out.values())
     return [dict(max_abs_err=err, ms=out["table"][kern]["ms"],
+                 dev_ms=out["table"][kern]["dev_ms"],
                  plain_ms=out["table"][kern]["plain_ms"],
-                 superstep_ms=out["superstep"][kern]["ms"],
-                 superstep_plain_ms=out["superstep"][kern]["plain_ms"],
-                 superstep_bound_ms=out["superstep"][kern]["bound_ms"],
+                 superstep_ms=out["superstep1"][kern]["ms"],
+                 superstep_dev_ms=out["superstep1"][kern]["dev_ms"],
+                 superstep_plain_ms=out["superstep1"][kern]["plain_ms"],
+                 superstep_bound_ms=out["superstep1"][kern]["bound_ms"],
+                 superstep_empty_ms=out["superstep0"][kern]["ms"],
+                 superstep_empty_dev_ms=out["superstep0"][kern]["dev_ms"],
+                 superstep_empty_plain_ms=out["superstep0"][kern]["plain_ms"],
+                 superstep_empty_bound_ms=out["superstep0"][kern]["bound_ms"],
                  **{key: out["table"][kern][key] for key in keys_of})
             for kern in ("b1", "b2")]
 

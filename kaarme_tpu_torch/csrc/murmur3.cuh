@@ -36,19 +36,29 @@ __device__ __forceinline__ uint32_t finish(uint32_t h, int W) {
     return fmix32(h ^ (4u * (uint32_t)W));
 }
 
-// One key's W words, word w at col[w * lw], read once with plain loads
+// One key's W words, word w at col[w * lw], read once with coherent loads
 // (the -b gate may overwrite them afterwards): its 64-bit root (hash under
 // SEED_LO, hash under SEED_HI) and whether every word is all-ones (K3's
-// invalid key, and the -b gate's missed key).
+// invalid key, and the -b gate's missed key).  STREAM loads them with the
+// evict-first hint (ld.global.cs), for a pass that reads each key once and
+// wants the cache lines it probes elsewhere to stay in L2.
 struct Root {
     uint32_t r1, r2;
     bool all_ones;
 };
 
+// One key word: evict-first (STREAM) or a plain load.
+template <bool STREAM>
+__device__ __forceinline__ uint32_t load_word(const uint32_t* p) {
+    if constexpr (STREAM) return __ldcs(p);
+    else return *p;
+}
+
+template <bool STREAM = false>
 __device__ __forceinline__ Root root_of(const uint32_t* col, long long lw, int W) {
     uint32_t h1 = SEED_LO, h2 = SEED_HI, ones = 0xffffffffu;
     for (int w = 0; w < W; ++w) {
-        const uint32_t x = col[w * lw];
+        const uint32_t x = load_word<STREAM>(col + w * lw);
         ones &= x;
         h1 = mix(h1, x);
         h2 = mix(h2, x);

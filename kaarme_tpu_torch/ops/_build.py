@@ -120,8 +120,8 @@ def _bind(lib):
     lib.kt_format_lines.restype = _I32
     lib.kt_format_lines_scratch.argtypes = [_I64]
     lib.kt_format_lines_scratch.restype = _I64
-    lib.kt_bloom_insert.argtypes = [_P, _P, _I64, _I32, _P, _I64, _I64, _I32, _I64, _P, _I64, _P,
-                                    _P]
+    lib.kt_bloom_insert.argtypes = [_P, _P, _I64, _I32, _P, _I64, _I64, _I32, _I64, _P, _I64,
+                                    _I64, _I32, _P, _P, _P]
     lib.kt_bloom_insert.restype = _I32
     lib.kt_bloom_gate.argtypes = [_P, _I64, _I32, _P, _I64, _I64, _I32, _I64, _P]
     lib.kt_bloom_gate.restype = _I32

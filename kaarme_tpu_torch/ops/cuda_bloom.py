@@ -8,8 +8,9 @@ counterparts of the JAX package's XLA ops (not Pallas kernels):
 ``bloom_insert`` and ``bloom_gate`` launch the hand-written kernels
 (``csrc/bloom.cu``: the roots and validity from the key columns in
 registers; B1 decides every key against the filters as they stood
-before the batch, ranking roots in a scratch set, then sets; B2
-overwrites a missed key with all-ones) on CUDA tensors, and run their
+before the batch, filter-first, ranking in a scratch set only the roots
+not already in both stages, then sets; B2 overwrites a missed key with
+all-ones) on CUDA tensors, and run their
 plain PyTorch versions, ``bloom_insert_plain`` and ``bloom_gate_plain``,
 on CPU tensors.  The plain versions are the definitions: the torch
 validity and ``hashing.hash_words64``, then ``ops/bloom.insert_batch``
@@ -27,8 +28,10 @@ every word of each valid key whose ``hfn`` bits are not all set in
 ``bf2`` with all-ones, and returns the keys.  The kernels read key
 columns that are views of one int32 buffer (K3's ``(W, N)`` output) where
 they lie and stack others (``cuda_table._key_columns``); ``bloom_gate``
-then gates and returns the stacked copy's rows.  ``scratch_for`` sizes
-B1's scratch, which a caller allocates once and passes to every batch.
+then gates and returns the stacked copy's rows.  ``scratch_for`` makes
+B1's scratch (``BloomScratch``), which a caller allocates once per pass
+and passes to every batch: its scratch set is zeroed once, and each batch
+takes the next epoch instead of clearing it (``csrc/bloom.cu``).
 """
 
 from __future__ import annotations
@@ -48,20 +51,46 @@ def _slots(n: int) -> int:
 
 
 def _scratch_words(n: int) -> int:
-    """int32 words of B1's scratch: 3 per slot, then n decision bytes."""
-    return 3 * _slots(n) + (n + 3) // 4
+    """int32 words of B1's scratch: 4 per slot (16 B: state, count, r1,
+    r2), then the decisions, two words per 32 windows."""
+    return 4 * _slots(n) + 2 * -(-n // 32)
 
 
-def scratch_for(n: int, device, have: "torch.Tensor | None" = None):
+# Epochs a scratch set counts before it is zeroed again (state = epoch << 1
+# | published must fit a u32; 0 means a slot never used).
+EPOCH_MAX = (1 << 31) - 1
+
+
+class BloomScratch:
+    """B1's scratch for batches of up to ``n`` windows: one zeroed int32
+    buffer, the set's ``slots`` 16 B slots then the decisions, and the
+    epoch of the last batch that used it.  ``next_epoch`` gives each
+    batch its epoch and says when the set must be zeroed first (the wrap
+    from ``EPOCH_MAX`` to 1); set ``epoch`` to start elsewhere."""
+
+    def __init__(self, n: int, device):
+        self.n = n
+        self.slots = _slots(n)
+        self.buf = torch.zeros(_scratch_words(n), dtype=torch.int32, device=device)
+        self.epoch = 0
+
+    def next_epoch(self):
+        """(epoch, clear) for the next batch."""
+        clear = self.epoch >= EPOCH_MAX
+        self.epoch = 1 if clear else self.epoch + 1
+        return self.epoch, clear
+
+
+def scratch_for(n: int, device, have: "BloomScratch | None" = None):
     """B1's scratch for batches of up to n windows on ``device``: ``have``
-    when it is large enough, else a new buffer; None off a card (the plain
+    when it is large enough, else a new one; None off a card (the plain
     version needs none)."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    if have is not None and have.numel() >= _scratch_words(n):
+    if have is not None and have.n >= n:
         return have
-    return torch.empty(_scratch_words(n), dtype=torch.int32, device=device)
+    return BloomScratch(n, device)
 
 
 def _check(bf, keys, hfn: int, *others):
@@ -92,10 +121,11 @@ def _device_of(bf):
 
 
 def bloom_insert(bf1: torch.Tensor, bf2: torch.Tensor, keys, hfn: int,
-                 scratch: "torch.Tensor | None" = None):
+                 scratch: "BloomScratch | None" = None):
     """Pass-1 insert of a batch of key columns (module docstring): B1 on
-    the card, ``bloom_insert_plain`` on the CPU.  ``scratch`` is
-    ``scratch_for(n, device)`` or larger (allocated here when None)."""
+    the card, ``bloom_insert_plain`` on the CPU.  ``scratch`` is a
+    ``BloomScratch`` for n windows or more (``scratch_for``; allocated here
+    when None); the batch takes its next epoch."""
     nwords, n = _check(bf1, keys, hfn, bf2)
     if _device_of(bf1).type == "cpu":
         return bloom_insert_plain(bf1, bf2, keys, hfn)
@@ -106,13 +136,15 @@ def bloom_insert(bf1: torch.Tensor, bf2: torch.Tensor, keys, hfn: int,
     counters = torch.empty(2, dtype=torch.int64, device=dev)
     kbuf, lw, li = _key_columns(keys)
     scratch = scratch_for(n, dev, scratch)
-    if scratch.dtype != torch.int32 or not scratch.is_contiguous():
-        raise ValueError("scratch must be a contiguous int32 tensor")
+    if scratch.buf.device != dev:
+        raise ValueError("the scratch must be on the filters' device")
+    epoch, clear = scratch.next_epoch()
+    dec = scratch.buf[4 * scratch.slots:]
     with torch.cuda.device(dev):
         err = _build.lib().kt_bloom_insert(
             bf1.data_ptr(), bf2.data_ptr(), nwords, hfn, kbuf.data_ptr(), lw, li, len(keys), n,
-            scratch.data_ptr(), _slots(n), counters.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            scratch.buf.data_ptr(), scratch.slots, epoch, int(clear), dec.data_ptr(),
+            counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_bloom_insert")
     bloom_insert.launches += 1
     return counters[0], counters[1]

@@ -141,12 +141,125 @@ def test_gate_on_int64_columns_keeps_the_u32_range():
     assert all(bool((g == 0xFFFFFFFF).all()) for g in got)
 
 
+def _mask_np(r2, hfn: int):
+    b0, stride = r2 & 31, ((r2 >> 5) | 1) & 31
+    m = np.zeros_like(r2)
+    for j in range(hfn):
+        m |= np.uint32(1) << ((b0 + np.uint32(j) * stride) & 31)
+    return m
+
+
+def _model_insert(bf1, bf2, r1, r2, valid, hfn: int, rng, stats):
+    """B1's decision order (``csrc/bloom.cu``) in numpy: warps of 32
+    windows, groups of a warp's valid lanes with one root led by the
+    lowest lane, the groups taken in a random order (any order of the
+    kernel's atomics); each leader reads in1 and in2 from the filters as
+    they stood, skips the scratch set when both hold, else ranks the root
+    with a count that saturates: a count >= need (2 when neither filter
+    holds the root, 1 when one does) decides 0 with no add.  Then the
+    decisions are applied to the filters.  Returns (bf1, bf2, n1, n2)."""
+    nwords = bf1.shape[0]
+    groups = []
+    for w0 in range(0, r1.shape[0], 32):
+        lanes = {}
+        for i in range(w0, min(w0 + 32, r1.shape[0])):
+            if valid[i]:
+                lanes.setdefault((int(r1[i]), int(r2[i])), []).append(i)
+        groups += [(root, ix[0], len(ix)) for root, ix in lanes.items()]
+    counts, dec = {}, np.zeros(r1.shape[0], np.uint8)
+    for gi in rng.permutation(len(groups)):
+        (a, b), lead, g = groups[gi]
+        w, m = a & (nwords - 1), int(_mask_np(np.uint32(b), hfn))
+        in1, in2 = int(bf1[w]) & m == m, int(bf2[w]) & m == m
+        stats["in2_not_in1"] += in2 and not in1
+        if in1 and in2:
+            stats["skipped"] += 1
+            continue
+        need = 1 if in1 or in2 else 2
+        o = counts.get((a, b))
+        if o is None:
+            counts[(a, b)], o = g, 0
+        elif o >= need:
+            stats["saturated"] += 1
+            continue
+        else:
+            counts[(a, b)] = o + g
+        first, second = o == 0, o <= 1 < o + g
+        set1 = first and not in1
+        set2 = not in2 and ((first and in1) or (second and not in1))
+        dec[lead] = set1 | set2 << 1
+    out = []
+    for bit, bf in ((1, bf1), (2, bf2)):
+        bf = bf.copy()
+        on = np.flatnonzero(dec & bit)
+        np.bitwise_or.at(bf, r1[on] & (nwords - 1), _mask_np(r2[on], hfn))
+        out.append(bf)
+    return out[0], out[1], int((dec & 1).astype(bool).sum()), int((dec & 2).astype(bool).sum())
+
+
+@pytest.mark.parametrize("start", ["empty", "random"])
+@pytest.mark.parametrize("bits", [1 << 6, 1 << 14])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_decision_order_matches_reference(seed, bits, start):
+    """The reasoning B1 rests on, held to the JAX ``insert_batch`` batch by
+    batch with tolerance 0 (equal BF1 and BF2 words and counters): the
+    filter-first skip, the count saturating at need, any group order.
+    Batches hold runs of one key (groups of several lanes) and keys of
+    earlier batches.  Filters filled by inserts alone keep BF2's bits
+    inside BF1's, so ``in2 && !in1`` (a BF2 false positive: set1 must
+    still land on a first occurrence) needs the "random" start, whose
+    BF2 is denser than BF1; the 2^6-bit filter (two words) is full of
+    false positives."""
+    rng = np.random.default_rng(seed)
+    W, words = 2, bits // 32
+    if start == "random":
+        f1 = (rng.random((words, 32)) < 0.5).astype(np.uint64)
+        f2 = (rng.random((words, 32)) < 0.8).astype(np.uint64)
+        to_words = lambda f: (f << np.arange(32, dtype=np.uint64)).sum(1).astype(np.uint32)
+        b1, b2 = to_words(f1), to_words(f2)
+    else:
+        b1, b2 = np.zeros(words, np.uint32), np.zeros(words, np.uint32)
+    rb1, rb2 = jnp.asarray(b1), jnp.asarray(b2)
+    stats = dict(in2_not_in1=0, skipped=0, saturated=0)
+    pool = rng.integers(0, 1 << 32, (200, W), dtype=np.uint32)
+    for _ in range(6):
+        rows = pool[rng.integers(0, 200, N)]
+        for at in rng.integers(0, N - 40, 6):       # runs of one key inside warps
+            rows[at:at + rng.integers(2, 40)] = rows[at]
+        rows[rng.random(N) < 0.05] = 0xFFFFFFFF
+        cols = [jnp.asarray(rows[:, w]) for w in range(W)]
+        valid = ~(rows == 0xFFFFFFFF).all(1)
+        r1, r2 = (np.asarray(x, np.uint32) for x in ref_hashing.hash_words64(cols))
+        b1, b2, m1, m2 = _model_insert(b1, b2, r1, r2, valid, HFN, rng, stats)
+        rb1, rb2, n1, n2 = ref_bloom.insert_batch(rb1, rb2, jnp.asarray(r1), jnp.asarray(r2),
+                                                  jnp.asarray(valid), HFN)
+        assert (m1, m2) == (int(n1), int(n2))
+        np.testing.assert_array_equal(b1, np.asarray(rb1))
+        np.testing.assert_array_equal(b2, np.asarray(rb2))
+    assert stats["skipped"] > 0 and stats["saturated"] > 0
+    assert (stats["in2_not_in1"] > 0) == (start == "random")
+
+
 def test_scratch_and_checks():
-    """B1's scratch: none off a card; slots a power of two >= 2n.  Bad
-    filters, key columns or devices are refused, never run elsewhere."""
+    """B1's scratch: none off a card; slots a power of two >= 2n, 16 B
+    each, then 8 B of decisions per 32 windows (a table batch: 32 MiB of
+    set, a 2^26-window superstep 2 GiB); epochs run 1 .. EPOCH_MAX and then
+    wrap to 1,
+    asking for the set to be cleared.  Bad filters, key columns or
+    devices are refused, never run elsewhere."""
     assert cuda_bloom.scratch_for(1 << 20, "cpu") is None
     for n, slots in ((1, 2), (3, 8), (1 << 20, 1 << 21), ((1 << 20) + 1, 1 << 22)):
         assert cuda_bloom._slots(n) == slots
+        assert cuda_bloom._scratch_words(n) == 4 * slots + 2 * -(-n // 32)
+    assert 4 * 4 * cuda_bloom._slots(1 << 20) == 32 << 20
+    assert 4 * 4 * cuda_bloom._slots(1 << 26) == 2 << 30
+    sc = cuda_bloom.BloomScratch(5, "cpu")
+    assert (sc.slots, sc.buf.numel(), int(sc.buf.abs().sum())) == (16, 66, 0)
+    assert [sc.next_epoch() for _ in range(2)] == [(1, False), (2, False)]
+    sc.epoch = cuda_bloom.EPOCH_MAX - 1
+    assert [sc.next_epoch() for _ in range(3)] == [(cuda_bloom.EPOCH_MAX, False), (1, True),
+                                                   (2, False)]
+    assert cuda_bloom.EPOCH_MAX == (1 << 31) - 1
     bf = bloom.make_bloom(1 << 10, "cpu")
     keys = (torch.zeros(4, dtype=torch.int32),)
     with pytest.raises(ValueError, match="power of two"):

@@ -1066,13 +1066,57 @@ def test_b1_equals_plain(dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["300_batches", "epoch_wrap", "in_both_filters"])
+def test_b1_one_scratch_over_batches(dev, case):
+    """B1 against its plain version batch after batch on ONE scratch, whose
+    set is never cleared between batches (each takes the next epoch), no
+    host synchronisation: 300 batches of 2^14 k=31 windows into 2^16-bit
+    filters, every 50th a poly-A batch (one root 2^14 times); a run of
+    three batches at epochs 1-3 that then jumps to EPOCH_MAX - 2 and
+    wraps (the batches after the wrap meet the slots epochs 1-3 left, so
+    the set must be cleared at the wrap); and one batch of 2^16 k=51
+    windows three times, the first on empty filters, the third with
+    every key already in both (counters 0, filters unchanged)."""
+    from kaarme_tpu_torch.ops import bloom, cuda_bloom
+
+    k, n, bits, glen, seeds = {"300_batches": (31, 1 << 14, 1 << 16, 300_000, range(300)),
+                               "epoch_wrap": (51, 1 << 16, 1 << 22, 200_000, range(9)),
+                               "in_both_filters": (51, 1 << 16, 1 << 22, 200_000, [5] * 3)}[case]
+    kf = [bloom.make_bloom(bits, dev) for _ in range(2)]
+    pf = [bloom.make_bloom(bits, dev) for _ in range(2)]
+    scratch = cuda_bloom.scratch_for(n, dev)
+    cuda_bloom.bloom_insert.launches = 0
+    counters = []
+    for b, seed in enumerate(seeds):
+        if case == "epoch_wrap" and b == 3:
+            scratch.epoch = cuda_bloom.EPOCH_MAX - 2
+        packed, mask = _read_chunk(n, k, seed=seed, genome_len=glen, poly_a=b % 50 == 49)
+        keys = cuda_winkeys.window_keys(_dev(packed, dev), _dev(mask, dev), k=k, n=n, dense=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = cuda_bloom.bloom_insert(kf[0], kf[1], keys, 7, scratch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = cuda_bloom.bloom_insert_plain(pf[0], pf[1], keys, 7)
+        counters.append([int(x) for x in want])
+        assert [int(x) for x in got] == counters[-1], (b, scratch.epoch)
+        assert torch.equal(kf[0], pf[0]) and torch.equal(kf[1], pf[1]), (b, scratch.epoch)
+    assert cuda_bloom.bloom_insert.launches == len(seeds)
+    if case == "epoch_wrap":
+        assert scratch.epoch == 4
+    if case == "in_both_filters":
+        assert counters[0][0] > 0 and counters[2] == [0, 0]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["k3", "separate"])
 @pytest.mark.parametrize("case", list(_BLOOM_CASES))
 def test_b2_equals_plain(dev, case, layout):
     """B2 (the pass-2 gate) against its plain version on K3 key columns
     gated by a BF2 that holds the keys of the batch before: equal key
     words (missed keys all-ones, invalid ones still all-ones); in place
-    on K3's buffer."""
+    on K3's buffer.  k=13, 51 and 201, tails of no whole block (777 and
+    100,003 windows)."""
     from kaarme_tpu_torch.ops import bloom, cuda_bloom
 
     k, n, bits, glen = _BLOOM_CASES[case]

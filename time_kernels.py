@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one card, in turns, on chip_smoke's inputs.
 
-    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|bloom|table|w1 OTHER_ROOT [--reps 5]
+    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|bloom|table|w1|bloom_e2e OTHER_ROOT \
+        [--reps 5]
 
 Run from the repository root.  Times a kernel of this checkout and of the
 checkout at OTHER_ROOT (for example the parent commit, unpacked with
@@ -34,13 +35,28 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
   5000000`` filter size (2^28 bits a stage, 7 hash functions): the
   table's pass-1 insert into both stages and its pass-2 gate against
   BF2, on one 2^20-window batch of k=51 reads after the 63 batches before
-  it, a poly-A batch after one poly-A batch, and a k=13 batch after 7
-  batches, each timed from fresh copies of its filters (the insert) or
-  of its key columns (the gate).  A checkout with ``ops/cuda_bloom.py``
-  runs B1 and B2; one without it runs the torch chain it ran before them
-  (the sentinel mask, ``hash_words64`` and ``bloom.insert_batch``; the
-  gate ``_bloom_miss_mask`` ORed into the keys); the digest is the
-  filters and counters after the insert and the gated keys;
+  it, a poly-A batch after one poly-A batch, a k=13 batch after 7
+  batches, and two 2^26-window sort supersteps of k=51 reads (a sort
+  route's pass 1: ``superstep0`` on empty filters, ``superstep1`` on the
+  filters after it), each timed from fresh copies of its filters (the
+  insert) or of its key columns (the gate).  A checkout with
+  ``ops/cuda_bloom.py`` runs B1 and B2; one without it runs the torch
+  chain it ran before them (the sentinel mask, ``hash_words64`` and
+  ``bloom.insert_batch``; the gate ``_bloom_miss_mask`` ORed into the
+  keys); the digest is the filters and counters after the insert and the
+  gated keys.  Beside each step's CUDA-event median of the call, ``ms``
+  holds as ``<step>_dev`` the card's time (``chip_smoke.cuda_ms_queued``:
+  the launches queued behind a sleep kernel), as ``<step>_host`` the
+  host's time from the call to its return (the wrapper's Python and its
+  launches), and ``kernels`` the profiler's device milliseconds of each
+  kernel and memset of a call;
+- bloom_e2e: not one kernel but the ``-b`` routes end to end: the CLI's
+  ``-b -u 5000000 -a 2`` runs at k=51 of the same FASTA as ``table``
+  (below) on the skm, classic and table routes; ``ms`` holds the median
+  wall, pass-1, count (``build_seconds``) and write milliseconds of each,
+  ``runs`` every run's (the first warms up) with its ``cudaMalloc``
+  calls, ``peak_bytes`` its peak device memory, the digest the SHA-256
+  of the sorted count file;
 - table: not one kernel but the probe-table route around T1: a
   ``KmerCounter`` (k=51, ``min_slots`` 8,000,000, the CLI's table
   configuration) counting chip_smoke's full-size FASTA (4.6 Mb genome,
@@ -252,6 +268,9 @@ def t1_worker(cs, dev, root: str, reps: int) -> dict:
 def bloom_worker(cs, dev, root: str, reps: int) -> dict:
     """The -b pass-1 step and pass-2 gate from K3's key columns (``bloom``
     above), CUDA-event medians from fresh copies of the filters or keys."""
+    import statistics
+    import time
+
     import torch
     from kaarme_tpu_torch.models import bloom_counter
     from kaarme_tpu_torch.ops import bloom, hashing, sortcount
@@ -262,10 +281,11 @@ def bloom_worker(cs, dev, root: str, reps: int) -> dict:
     if kernels:
         from kaarme_tpu_torch.ops import cuda_bloom
 
-        scratch = cuda_bloom.scratch_for(per, dev)
+        scratch = [None]      # grown to the largest batch, then reused by every batch
 
         def insert(bf1, bf2, keys):
-            n1, n2 = cuda_bloom.bloom_insert(bf1, bf2, keys, hfn, scratch)
+            scratch[0] = cuda_bloom.scratch_for(keys[0].shape[0], dev, scratch[0])
+            n1, n2 = cuda_bloom.bloom_insert(bf1, bf2, keys, hfn, scratch[0])
             return bf1, bf2, n1, n2
 
         def gate(bf2, keys):
@@ -281,7 +301,53 @@ def bloom_worker(cs, dev, root: str, reps: int) -> dict:
             return tuple(x | miss for x in keys)
 
     out = dict(root=root, api="B1 and B2" if kernels else
-               "sentinel mask + hash_words64 + insert_batch; _bloom_miss_mask", ms={}, digest={})
+               "sentinel mask + hash_words64 + insert_batch; _bloom_miss_mask", ms={}, digest={},
+               kernels={})
+
+    def host_ms(prepare, fn):
+        """Median host milliseconds from the call of ``fn(*prepare())`` to
+        its return, on an idle card (one warm-up): the wrapper's Python and
+        its launches, the card not waited for."""
+        fn(*prepare())
+        times = []
+        for _ in range(reps):
+            args = prepare()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def measure(name, bf1, bf2, keys):
+        """Digest and time the insert of ``keys`` into copies of the filters
+        and the gate of copies of ``keys`` by the BF2 after it; returns
+        the filters after the insert."""
+        base = torch.stack(list(keys))
+        fresh = lambda: (bf1.clone(), bf2.clone(), keys)
+        r = insert(*fresh())
+        out["digest"][f"{name}_insert"] = [digest(r[:2]), int(r[2]), int(r[3])]
+        g = gate(r[1], tuple(base.clone().unbind(0)))
+        out["digest"][f"{name}_gate"] = [digest(g)]
+        after = r[:2]
+        del r
+        gate_fresh = lambda: (after[1], tuple(base.clone().unbind(0)))
+        for step, fn, prep in (("insert", insert, fresh), ("gate", gate, gate_fresh)):
+            out["ms"][f"{name}_{step}"] = cs.cuda_ms_fresh(prep, fn, reps)
+            out["ms"][f"{name}_{step}_dev"] = cs.cuda_ms_queued(prep, fn, reps)
+            out["ms"][f"{name}_{step}_host"] = host_ms(prep, fn)
+        # each kernel's device time (and the memsets'), by the profiler
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                insert(*fresh())
+                gate(*gate_fresh())
+            torch.cuda.synchronize()
+        out["kernels"][name] = {
+            e.key[:60]: getattr(e, "device_time_total", 0) / reps / 1e3
+            for e in prof.key_averages() if "bloom" in e.key or "Memset" in e.key}
+        del g, base
+        return after
+
     for name, k, before in (("k51", cs.K, 63), ("polyA", cs.K, 0), ("k13", 13, 7)):
         if before:
             codes = cs.read_stream(dev, 4_600_000, (before + 1) * per + k - 1, n_every=100_003)
@@ -291,20 +357,68 @@ def bloom_worker(cs, dev, root: str, reps: int) -> dict:
         for b in range(max(before, 1)):
             bf1, bf2, _, _ = insert(bf1, bf2, cs.table_batch(codes, b, k)())
         keys = cs.table_batch(codes, max(before, 1), k)()
-        base = torch.stack(list(keys))
         del codes
-        fresh = lambda: (bf1.clone(), bf2.clone(), keys)
-        r = insert(*fresh())
-        out["digest"][f"{name}_insert"] = [digest(r[:2]), int(r[2]), int(r[3])]
-        g = gate(r[1], tuple(base.clone().unbind(0)))
-        out["digest"][f"{name}_gate"] = [digest(g)]
-        gated = r[1]
-        del r, g
-        out["ms"][f"{name}_insert"] = cs.cuda_ms_fresh(fresh, insert, reps)
-        out["ms"][f"{name}_gate"] = cs.cuda_ms_fresh(
-            lambda: (gated, tuple(base.clone().unbind(0))), gate, reps)
-        del bf1, bf2, keys, base, gated
+        measure(name, bf1, bf2, keys)
+        del bf1, bf2, keys
         torch.cuda.empty_cache()
+
+    # two 2^26-window sort supersteps (a sort route's pass 1): the first on
+    # empty filters, the second on the filters after the first
+    n = cs.N_WINDOWS
+    codes = cs.read_stream(dev, 4_600_000, 2 * n + cs.K - 1, n_every=100_003)
+    bf1, bf2 = bloom.make_bloom(bits, dev), bloom.make_bloom(bits, dev)
+    for step in range(2):
+        packed, seps, _ = cs.chunk_of(codes[step * n: (step + 1) * n + cs.K - 1])
+        keys = sortcount.window_keys_from_chunk(packed, seps, k=cs.K, n=n)
+        del packed, seps
+        bf1, bf2 = measure(f"superstep{step}", bf1, bf2, keys)
+        del keys
+        torch.cuda.empty_cache()
+    return out
+
+
+def bloom_e2e_worker(root: str, reps: int) -> dict:
+    """The k=51 ``-b`` CLI runs of the shared FASTA (``bloom_e2e`` above)."""
+    import hashlib
+    import statistics
+    import time
+
+    import torch
+    from kaarme_tpu_torch import cli
+
+    path = os.environ["KT_FASTA"]
+    out = dict(root=root, api="cli.run -b -u 5000000 -a 2, k=51", ms={}, digest={},
+               peak_bytes={}, runs={})
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("skm", []), ("classic", ["--pipeline", "classic"]),
+                            ("table", ["--backend", "table"])):
+            dst = os.path.join(tmp, name + ".txt")
+            argv = [path, "51", "-b", "-u", "5000000", "-a", "2", "-q", "-o", dst, *extra]
+            runs = []
+            for _ in range(reps + 1):           # the first run warms up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+                t0 = time.perf_counter()
+                rc, counter = cli.run(argv)
+                wall = time.perf_counter() - t0
+                if rc:
+                    raise RuntimeError(f"bloom_e2e {name}: the CLI exited {rc}")
+                st = counter.stats
+                runs.append(dict(wall=wall, write=st["write_seconds"], count=st["build_seconds"],
+                                 pass1=st.get("bloom_pass1_seconds", st.get("bloom_pass_seconds")),
+                                 peak=torch.cuda.max_memory_allocated(),
+                                 mallocs=torch.cuda.memory_stats().get("num_device_alloc", 0)
+                                 - mallocs))
+                del counter
+            for key in ("wall", "pass1", "count", "write"):
+                out["ms"][f"{name}_{key}"] = statistics.median(r[key] for r in runs[1:]) * 1e3
+            out["runs"][name] = [{k: round(v * 1e3, 1) if k not in ("peak", "mallocs") else v
+                                  for k, v in r.items()} for r in runs]
+            out["peak_bytes"][name] = max(r["peak"] for r in runs[1:])
+            with open(dst, "rb") as f:
+                lines = sorted(f.read().splitlines())
+            out["digest"][name] = [hashlib.sha256(b"\n".join(lines)).hexdigest(), len(lines)]
     return out
 
 
@@ -440,6 +554,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
         return table_worker(root, reps)
     if kernel == "w1":
         return w1_worker(root, reps)
+    if kernel == "bloom_e2e":
+        return bloom_e2e_worker(root, reps)
     if kernel == "t1":
         return t1_worker(cs, dev, root, reps)
     if kernel == "bloom":
@@ -461,7 +577,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
     ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "t1", "bloom", "table",
-                                         "w1"),
+                                         "w1", "bloom_e2e"),
                     required=True)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
@@ -475,7 +591,7 @@ def main() -> int:
     out = []
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ)
-        if a.kernel in ("table", "w1"):
+        if a.kernel in ("table", "w1", "bloom_e2e"):
             env["KT_FASTA"] = os.path.join(tmp, "reads.fa")
             cs.write_reads_fasta(env["KT_FASTA"], 4_600_000, 30)
         for root in (other, HERE, HERE, other):
