@@ -1456,17 +1456,16 @@ def counted(fn, label: str, uses=(), quiet: bool = False):
     fin = st.get("finalize_seconds")
     bloom = ""
     if "new_in_second" in st:
-        pass1 = (f"{st['bloom_pass1_seconds']:.3f} s ({st['pass1_batches']} supersteps)"
-                 if "pass1_batches" in st else f"{st['bloom_pass_seconds']:.3f} s")
+        pass1 = f"{st['bloom_pass1_seconds']:.3f} s" + (
+            f" ({st['pass1_batches']} supersteps)" if "pass1_batches" in st else "")
         bloom = (f"; Bloom pass 1 {pass1}, new_in_first {st['new_in_first']}, new_in_second "
                  f"{st['new_in_second']}, {st['bloom_bits']} bits x 2, "
                  f"{st['bloom_hash_functions']} hash functions")
     if "replayed_supersteps" not in st:
-        # the probe table: its build_seconds holds the device steps only
+        # the probe table
         used, cap = counter.occupancy()
-        print(f"full size {label}: count {wall - st['write_seconds']:.3f} s (wall - write; "
-              f"device steps {st['build_seconds']:.3f} s; "
-              f"{st['windows_processed'] / (wall - st['write_seconds']):.0f} windows/s), write "
+        print(f"full size {label}: count {st['build_seconds']:.3f} s "
+              f"({st['windows_processed'] / st['build_seconds']:.0f} windows/s), write "
               f"{st['write_seconds']:.3f} s, wall {wall:.3f} s, peak device memory {peak} bytes; "
               f"batches {st['batches']}, grow events {st['grow_events']}, occupancy "
               f"{used}/{cap}; launches {launches}" + bloom)

@@ -23,7 +23,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
+
+from .utils import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,6 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kernels", choices=("cuda", "plain"), default="cuda",
                    help="'cuda': the hand-written kernels on a CUDA device; "
                         "'plain': their plain PyTorch versions (def. cuda)")
+    p.add_argument("--trace-out", default="",
+                   help="Record the program's spans and counters and write them to this "
+                        "file as Chrome trace-event JSON (Perfetto; microseconds of "
+                        "time.perf_counter_ns)")
     return p
 
 
@@ -168,8 +173,21 @@ def sharded_config_kwargs(args) -> dict:
 
 
 def run(argv=None):
-    """Parse, count and write; returns (exit code, counter or None)."""
+    """Parse, count and write; returns (exit code, counter or None).
+    With ``--trace-out PATH`` the run's span and counter records go to
+    PATH (``utils/trace.py``)."""
     args = build_parser().parse_args(argv)
+    if not args.trace_out:
+        return _run(args)
+    was, since = trace.record(True), trace.mark()
+    try:
+        return _run(args)
+    finally:
+        trace.record(was)
+        trace.write_chrome(args.trace_out, since)
+
+
+def _run(args):
     err = validate(args)
     if err:
         print(f"error: {err}", file=sys.stderr)
@@ -244,7 +262,6 @@ def run(argv=None):
     except (RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1, None
-    t0 = time.perf_counter()
     prefetch = max(1, args.threads - 2)
     if bloom and args.backend == "table":
         # two passes over the file; the table is sized from the filter
@@ -257,7 +274,6 @@ def run(argv=None):
         counter.count_file_two_pass(args.INPUT, prefetch=prefetch)
     else:
         counter.count_file(args.INPUT, prefetch=prefetch)
-    build_s = time.perf_counter() - t0
 
     n = counter.write_output(out)
     if args.histo:
@@ -272,6 +288,8 @@ def run(argv=None):
                     f.write(f"{c} {spec[c]}\n")
     used, cap = counter.occupancy()
     if not args.quiet:
+        # both passes with -b: the count span holds pass 2 alone
+        build_s = counter.stats["build_seconds"] + counter.stats.get("bloom_pass1_seconds", 0.0)
         print(f"Time used for hash table construction: {build_s * 1e6:.0f} microseconds")
         print(f"Time used for writing k-mers: {counter.stats['write_seconds'] * 1e6:.0f} microseconds")
         print(f"Hash table slots in use: {used}/{cap}")

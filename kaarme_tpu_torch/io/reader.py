@@ -18,6 +18,7 @@ import gzip
 import queue
 import threading
 
+from ..utils import trace
 from . import fastio
 
 DEFAULT_CHUNK_BYTES = 8 << 20  # mirrors the reference's 8 MiB read buffer
@@ -68,15 +69,17 @@ class CodeChunkReader:
         fq_state = None
         with opener(self.path, "rb") as f:
             while True:
-                buf = f.read(self.chunk_bytes)
+                with trace.span("read"):
+                    buf = f.read(self.chunk_bytes)
                 if not buf:
                     break
-                if self.fmt == "fasta":
-                    codes, in_header = fastio.encode_fasta(buf, in_header)
-                elif self.fmt == "fastq":
-                    codes, fq_state = fastio.encode_fastq(buf, fq_state)
-                else:
-                    codes = fastio.encode_plain(buf)
+                with trace.span("encode"):
+                    if self.fmt == "fasta":
+                        codes, in_header = fastio.encode_fasta(buf, in_header)
+                    elif self.fmt == "fastq":
+                        codes, fq_state = fastio.encode_fastq(buf, fq_state)
+                    else:
+                        codes = fastio.encode_plain(buf)
                 if codes.shape[0]:
                     yield codes
 
@@ -110,7 +113,8 @@ class PrefetchingReader:
         t = threading.Thread(target=produce, daemon=True)
         t.start()
         while True:
-            item = q.get()
+            with trace.span("reader_wait"):
+                item = q.get()
             if item is self._SENTINEL:
                 break
             yield item

@@ -32,13 +32,13 @@ second occurrences a batch sees.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
 from ..io import reader as io_reader
 from ..ops import bloom as bloom_ops
 from ..ops import cuda_bloom, sortcount
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.mathutils import bloom_sizing
 from .counter import CounterConfig, KmerCounter
@@ -93,33 +93,34 @@ def bloom_pass1(cfg: BloomCounterConfig, chunks):
     dev = resolve_device(cfg.device)
     bits, hfn, bf1, bf2 = make_filters(cfg.expected_unique, cfg.fpr, dev)
     new1 = new2 = 0        # device scalars after the first batch: one sync at the end
-    t0 = time.perf_counter()
-    batcher = TileBatcher(cfg.k, cfg.tile, cfg.batch_tiles)
-    # B1's scratch, allocated once for every batch (None off a card)
-    scratch = (cuda_bloom.scratch_for(cfg.tile * cfg.batch_tiles, dev)
-               if cfg.kernels == "cuda" else None)
+    stats = {"bloom_bits": bits, "bloom_hash_functions": hfn}
 
     def run(batch):
         nonlocal bf1, bf2, new1, new2
-        packed, sep, n, dense = pack_chunk(batch, cfg.tile * cfg.batch_tiles)
-        bf1, bf2, n1, n2 = sortcount.bloom_pass1_superstep(
-            bf1, bf2, to_device(packed, dev), to_device(sep, dev), k=cfg.k, n=n, dense=dense,
-            hfn=hfn, kernels=cfg.kernels, scratch=scratch)
-        new1 = new1 + n1
-        new2 = new2 + n2
+        with trace.span("pack", stats):
+            packed, sep, n, dense = pack_chunk(batch, cfg.tile * cfg.batch_tiles)
+        with trace.span("to_device", stats):
+            packed_d, sep_d = to_device(packed, dev), to_device(sep, dev)
+        with trace.span("dispatch", stats):
+            bf1, bf2, n1, n2 = sortcount.bloom_pass1_superstep(
+                bf1, bf2, packed_d, sep_d, k=cfg.k, n=n, dense=dense, hfn=hfn,
+                kernels=cfg.kernels, scratch=scratch)
+            new1 = new1 + n1
+            new2 = new2 + n2
 
-    for codes in chunks:
-        for batch in batcher.add_flat(codes):
+    with trace.span("bloom_pass1", stats):
+        batcher = TileBatcher(cfg.k, cfg.tile, cfg.batch_tiles)
+        # B1's scratch, allocated once for every batch (None off a card)
+        scratch = (cuda_bloom.scratch_for(cfg.tile * cfg.batch_tiles, dev)
+                   if cfg.kernels == "cuda" else None)
+        for codes in chunks:
+            for batch in batcher.add_flat(codes):
+                run(batch)
+        for batch in batcher.finish_flat():
             run(batch)
-    for batch in batcher.finish_flat():
-        run(batch)
-    stats = {
-        "bloom_bits": bits,
-        "bloom_hash_functions": hfn,
-        "new_in_first": int(new1),
-        "new_in_second": int(new2),
-        "bloom_pass_seconds": time.perf_counter() - t0,
-    }
+        with trace.span("drain", stats):
+            trace.count("host_syncs", 2, stats)
+            stats["new_in_first"], stats["new_in_second"] = int(new1), int(new2)
     # squeeze: BF1 and B1's scratch are no longer needed once sizing is known
     del bf1, scratch
     return bf2, hfn, stats
@@ -197,8 +198,10 @@ class _TwoPassBloom:
         if self._phase != 1:
             raise RuntimeError("start_pass2 called twice")
         self.finish()
-        self.stats["new_in_first"] = sum(int(a) for a, _ in self._n12)
-        self.stats["new_in_second"] = sum(int(b) for _, b in self._n12)
+        with trace.span("drain", self.stats):
+            trace.count("host_syncs", 2 * len(self._n12), self.stats)
+            self.stats["new_in_first"] = sum(int(a) for a, _ in self._n12)
+            self.stats["new_in_second"] = sum(int(b) for _, b in self._n12)
         self._n12 = []
         self.stats["pass1_batches"] = self.stats["batches"]
         self.stats["batches"] = 0
@@ -208,24 +211,22 @@ class _TwoPassBloom:
 
     def count_codes_two_pass(self, codes: np.ndarray):
         """Both passes over an in-memory code stream."""
-        t0 = time.perf_counter()
-        self.add_codes(np.asarray(codes, np.uint8))
-        self.start_pass2()
-        self.stats["bloom_pass1_seconds"] = time.perf_counter() - t0
+        with trace.span("bloom_pass1", self.stats):
+            self.add_codes(np.asarray(codes, np.uint8))
+            self.start_pass2()
         return self.count_codes(codes)
 
     def count_file_two_pass(self, path: str,
                             chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
                             prefetch: int = 4):
         """Both passes over a file (it is read twice)."""
-        t0 = time.perf_counter()
-        chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
-        if prefetch:
-            chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
-        for codes in chunks:
-            self.add_codes(codes)
-        self.start_pass2()
-        self.stats["bloom_pass1_seconds"] = time.perf_counter() - t0
+        with trace.span("bloom_pass1", self.stats):
+            chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
+            if prefetch:
+                chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
+            for codes in chunks:
+                self.add_codes(codes)
+            self.start_pass2()
         return self.count_file(path, chunk_bytes=chunk_bytes, prefetch=prefetch)
 
 

@@ -25,7 +25,6 @@ comparisons sort (``utils/compare.py``).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -34,7 +33,7 @@ from ..io import reader as io_reader
 from ..ops import sortcount
 from ..ops import table as table_ops
 from ..ops.hashing import hash_words
-from ..utils import codec
+from ..utils import codec, trace
 from ..utils.device import resolve_device
 from ..utils.mathutils import capacity_log2
 from .sort_counter import CountOutput, pack_chunk, rows_to_host, to_device
@@ -88,7 +87,7 @@ class KmerCounter(CountOutput):
             "windows_processed": 0,   # padded tile positions: tiles x tile
             "batches": 0,
             "grow_events": 0,
-            "build_seconds": 0.0,     # device steps (grow and retry included)
+            "build_seconds": 0.0,     # count_file / count_codes wall time
             "write_seconds": 0.0,
         }
 
@@ -110,19 +109,23 @@ class KmerCounter(CountOutput):
         return {}
 
     def _flush(self, batch: np.ndarray):
-        t0 = time.perf_counter()
         cfg = self.cfg
-        packed, sep, n, dense = pack_chunk(batch, cfg.batch_windows)
-        chunk = dict(packed=to_device(packed, self.device), sep=to_device(sep, self.device),
-                     k=cfg.k, n=n, dense=dense, kernels=cfg.kernels)
-        self.tkeys, self.counts, overflow, pending = table_ops.count_step(
-            self.tkeys, self.counts, max_probes=cfg.max_probes, **chunk,
-            **self._window_kwargs())
-        if int(overflow):
-            self._grow_and_retry(chunk, pending)
-        self.stats["batches"] += 1
+        with trace.span("pack", self.stats):
+            packed, sep, n, dense = pack_chunk(batch, cfg.batch_windows)
+        with trace.span("to_device", self.stats):
+            chunk = dict(packed=to_device(packed, self.device), sep=to_device(sep, self.device),
+                         k=cfg.k, n=n, dense=dense, kernels=cfg.kernels)
+        with trace.span("dispatch", self.stats):
+            self.tkeys, self.counts, overflow, pending = table_ops.count_step(
+                self.tkeys, self.counts, max_probes=cfg.max_probes, **chunk,
+                **self._window_kwargs())
+        with trace.span("drain", self.stats):
+            trace.count("host_syncs", stats=self.stats)
+            if int(overflow):
+                with trace.span("replay", self.stats):
+                    self._grow_and_retry(chunk, pending)
+        trace.count("batches", stats=self.stats)
         self.stats["windows_processed"] += n
-        self.stats["build_seconds"] += time.perf_counter() - t0
 
     def _grow_and_retry(self, chunk: dict, pending):
         """Double capacity, migrate, and re-insert the exact pending set.
@@ -132,7 +135,7 @@ class KmerCounter(CountOutput):
         cfg = self.cfg
         keys = sortcount.window_keys_from_chunk(**chunk)
         for _ in range(cfg.max_grows):
-            self.stats["grow_events"] += 1
+            trace.count("grow_events", stats=self.stats)
             self.cap_log2 += 1
             new_tk, new_cn = table_ops.make_table(self.cap_log2, cfg.words, self.device)
             # migrate existing entries (amount = stored count)
@@ -141,11 +144,13 @@ class KmerCounter(CountOutput):
             new_tk, new_cn, _, n_mig = table_ops.insert(
                 new_tk, new_cn, okeys, old_cn > 0, amount=old_cn, max_probes=cfg.max_probes,
                 kernels=cfg.kernels)
+            trace.count("host_syncs", stats=self.stats)
             if int(n_mig):
                 continue  # did not fit either: grow again
             new_tk, new_cn, pending, n_left = table_ops.insert(
                 new_tk, new_cn, keys, pending, max_probes=cfg.max_probes, kernels=cfg.kernels)
             self.tkeys, self.counts = new_tk, new_cn
+            trace.count("host_syncs", stats=self.stats)
             if int(n_left) == 0:
                 return
         raise RuntimeError("hash table could not grow to fit the input")
@@ -154,17 +159,19 @@ class KmerCounter(CountOutput):
 
     def count_file(self, path: str, chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
                    prefetch: int = 4):
-        chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
-        if prefetch:
-            chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
-        for codes in chunks:
-            self.add_codes(codes)
-        self.finish()
+        with trace.span("count", self.stats):
+            chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
+            if prefetch:
+                chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
+            for codes in chunks:
+                self.add_codes(codes)
+            self.finish()
         return self
 
     def count_codes(self, codes: np.ndarray):
-        self.add_codes(np.asarray(codes, np.uint8))
-        self.finish()
+        with trace.span("count", self.stats):
+            self.add_codes(np.asarray(codes, np.uint8))
+            self.finish()
         return self
 
     # -- output ------------------------------------------------------------

@@ -22,11 +22,11 @@ materialize once, at finalize, from the distinct runs.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
 from ..ops import cuda_skm, skm, sortcount
+from ..utils import trace
 from .sort_counter import SortCounterConfig, SortKmerCounter, _Step, sized_store, store_part
 
 _JAX_SEGPACKS = ("pallas", "pallas_interpret", "dense_interpret", "xla")
@@ -168,7 +168,7 @@ class SkmCounter(SortKmerCounter):
             self._rows_eff_min = sortcount.next_store_size(max(rows_used, 2 * step.eff))
         steps = [step] + [s for (_, s) in self._inflight]
         self._inflight.clear()
-        self.stats["slot_grow_events"] += 1
+        trace.count("slot_grow_events", stats=self.stats)
         self.prefix = step.prefix_in
         self._replay_all(steps)
         return True
@@ -189,11 +189,10 @@ class SkmCounter(SortKmerCounter):
         tag = (self.stats["windows_processed"], self.n_used)
         if self._final_cache is not None and self._final_cache[0] == tag:
             return self._final_cache[1]
-        t0 = time.perf_counter()
-        run_cols = tuple(c[: self.n_used] for c in self.prefix)
-        out = skm.finalize_store(run_cols, self.cfg.k, kernels=self.cfg.kernels,
-                                 **self._superstep_kwargs())
-        self.stats["finalize_seconds"] += time.perf_counter() - t0  # nd read = synced
+        with trace.span("finalize", self.stats):      # ends in the nd read, a sync
+            run_cols = tuple(c[: self.n_used] for c in self.prefix)
+            out = skm.finalize_store(run_cols, self.cfg.k, kernels=self.cfg.kernels,
+                                     **self._superstep_kwargs())
         self._final_cache = (tag, out)
         return out
 

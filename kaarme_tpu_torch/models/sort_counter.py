@@ -23,7 +23,6 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -31,7 +30,7 @@ import torch
 from ..io import codebuf, fastio
 from ..io import reader as io_reader
 from ..ops import sortcount, writer
-from ..utils import codec
+from ..utils import codec, trace
 from ..utils.device import resolve_device
 
 _Step = collections.namedtuple("_Step", "packed sep n dense eff prefix_in")
@@ -117,12 +116,10 @@ class CountOutput:
         is slot order, so comparisons sort), assembled where the dump lies
         (``ops/writer.write_lines``: W1 on a card).  Returns #lines
         written."""
-        t0 = time.perf_counter()
         cfg = self.cfg
-        n = writer.write_lines(path, self.dump_columns(), k=cfg.k, mode=cfg.mode,
-                               min_abundance=cfg.min_abundance, kernels=cfg.kernels)
-        self.stats["write_seconds"] += time.perf_counter() - t0
-        return n
+        with trace.span("write", self.stats):
+            return writer.write_lines(path, self.dump_columns(), k=cfg.k, mode=cfg.mode,
+                                      min_abundance=cfg.min_abundance, kernels=cfg.kernels)
 
 
 class SortedOutput(CountOutput):
@@ -235,22 +232,20 @@ class SortKmerCounter(SortedOutput):
         self._drain()
 
     def count_codes(self, codes: np.ndarray):
-        t0 = time.perf_counter()
-        self.add_codes(np.asarray(codes, np.uint8))
-        self.finish()
-        self.stats["build_seconds"] += time.perf_counter() - t0
+        with trace.span("count", self.stats):
+            self.add_codes(np.asarray(codes, np.uint8))
+            self.finish()
         return self
 
     def count_file(self, path: str, chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
                    prefetch: int = 4):
-        t0 = time.perf_counter()
-        chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
-        if prefetch:
-            chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
-        for codes in chunks:
-            self.add_codes(codes)
-        self.finish()
-        self.stats["build_seconds"] += time.perf_counter() - t0
+        with trace.span("count", self.stats):
+            chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
+            if prefetch:
+                chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
+            for codes in chunks:
+                self.add_codes(codes)
+            self.finish()
         return self
 
     # -- device steps ------------------------------------------------------
@@ -263,17 +258,21 @@ class SortKmerCounter(SortedOutput):
 
     def _prepare(self, stream: np.ndarray, n: int):
         """Worker-thread half: the superstep's transfer chunk (host only)."""
-        return pack_chunk(stream[: n + self.cfg.k - 1], n)
+        with trace.span("pack"):
+            return pack_chunk(stream[: n + self.cfg.k - 1], n)
 
     def _launch(self, final: bool):
         """Main-thread half: copy and dispatch prepared supersteps (all of
         them when ``final``, else all but the newest)."""
         while self._prepped and (final or len(self._prepped) > 1):
-            packed, sep, n, dense = self._prepped.pop(0).result()
-            packed_d, sep_d = to_device(packed, self.device), to_device(sep, self.device)
+            with trace.span("pack_wait", self.stats):
+                packed, sep, n, dense = self._prepped.pop(0).result()
+            with trace.span("to_device", self.stats):
+                packed_d, sep_d = to_device(packed, self.device), to_device(sep, self.device)
             self._drain(keep=self._max_inflight)
-            self._dispatch(packed_d, sep_d, n, dense)
-            self.stats["batches"] += 1
+            with trace.span("dispatch", self.stats):
+                self._dispatch(packed_d, sep_d, n, dense)
+            trace.count("batches", stats=self.stats)
             self.stats["windows_processed"] += n
 
     def _eff_for_dispatch(self, n: int) -> int:
@@ -333,42 +332,48 @@ class SortKmerCounter(SortedOutput):
             self._delta_max = max(self._delta_max or 0, nd_exact - self.n_distinct)
         self.n_distinct = nd_exact
         self.n_used = nd
-        self.stats["compactions"] += 1
+        trace.count("compactions", stats=self.stats)
 
     def _replay_all(self, steps):
-        self.stats["replayed_supersteps"] += len(steps)
-        for s in steps:
-            self._dispatch(s.packed, s.sep, s.n, s.dense)
-            self._drain(keep=0)
+        trace.count("replayed_supersteps", len(steps), self.stats)
+        with trace.span("replay", self.stats):
+            for s in steps:
+                with trace.span("dispatch", self.stats):
+                    self._dispatch(s.packed, s.sep, s.n, s.dense)
+                self._drain(keep=0)
 
     def _drain(self, keep: int = 0):
         """Verify in-flight supersteps down to ``keep`` outstanding: accept
         each output, or grow the store and replay the overflowing
         superstep and everything dispatched after it."""
-        while len(self._inflight) > keep:
-            nd_h, step = self._inflight.popleft()
-            vals = nd_h.tolist()
-            if self._rows_overflow(vals, step):
-                continue
-            nd_exact, nd = vals[0], vals[1]
-            cap_used = step.prefix_in[0].shape[0]
-            if nd <= cap_used:
-                self._accept(nd_exact, nd)
-                continue
-            steps = [step] + [s for (_, s) in self._inflight]
-            self._inflight.clear()
-            # nd counts every record, so it bounds the size that fits;
-            # the superstep's input mass bounds the growth per retry
-            bound = min(cap_used + step.n, 2 * max(nd, cap_used))
-            new_eff = sortcount.next_store_size(bound)
-            self._eff_floor = max(self._eff_floor, new_eff)
-            self._delta_max = max(self._delta_max or 0, new_eff - self.n_used)
-            if new_eff > self.cfg.prefix_cap:
-                self.cfg.prefix_cap = new_eff
-                self.stats["grow_events"] += 1
-            self.prefix = step.prefix_in   # pre-overflow store, still live
-            self.prefix = sized_store(self.prefix, new_eff)
-            self._replay_all(steps)
+        if len(self._inflight) <= keep:
+            return
+        with trace.span("drain", self.stats):
+            while len(self._inflight) > keep:
+                nd_h, step = self._inflight.popleft()
+                trace.count("host_syncs", stats=self.stats)
+                vals = nd_h.tolist()
+                if self._rows_overflow(vals, step):
+                    continue
+                nd_exact, nd = vals[0], vals[1]
+                cap_used = step.prefix_in[0].shape[0]
+                if nd <= cap_used:
+                    self._accept(nd_exact, nd)
+                    continue
+                steps = [step] + [s for (_, s) in self._inflight]
+                self._inflight.clear()
+                # nd counts every record, so it bounds the size that fits;
+                # the superstep's input mass bounds the growth per retry
+                bound = min(cap_used + step.n, 2 * max(nd, cap_used))
+                new_eff = sortcount.next_store_size(bound)
+                self._eff_floor = max(self._eff_floor, new_eff)
+                self._delta_max = max(self._delta_max or 0, new_eff - self.n_used)
+                if new_eff > self.cfg.prefix_cap:
+                    self.cfg.prefix_cap = new_eff
+                    trace.count("grow_events", stats=self.stats)
+                self.prefix = step.prefix_in   # pre-overflow store, still live
+                self.prefix = sized_store(self.prefix, new_eff)
+                self._replay_all(steps)
 
     def _merge(self):
         """The pipeline sync point: verify all in-flight supersteps."""

@@ -19,7 +19,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+
+from ..utils import trace
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
@@ -61,27 +62,27 @@ def _compile(out: str, srcs) -> None:
     nvcc = find_nvcc()
     tag = f"{out[:-3]}.{os.getpid()}"
     objs = [f"{tag}.{os.path.basename(src)[:-3]}.o" for src in srcs]
-    t0 = time.perf_counter()
-    try:
-        procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-                                   "-Xcompiler", "-fPIC", "-c", "-o", obj, src],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(srcs, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        BUILD_INFO["log"] = "".join(logs)
-        bad = [(src, p.returncode, log) for src, p, log in zip(srcs, procs, logs)
-               if p.returncode]
-        if bad:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(
-                f"{src} ({rc}):\n{log}" for src, rc, log in bad))
-        tmp = f"{tag}.tmp.so"
-        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
-                             capture_output=True, text=True)
-    finally:
-        for obj in objs:
-            if os.path.exists(obj):
-                os.remove(obj)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    with trace.span("kernel_build") as sp:
+        try:
+            procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+                                       "-Xcompiler", "-fPIC", "-c", "-o", obj, src],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(srcs, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            BUILD_INFO["log"] = "".join(logs)
+            bad = [(src, p.returncode, log) for src, p, log in zip(srcs, procs, logs)
+                   if p.returncode]
+            if bad:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(
+                    f"{src} ({rc}):\n{log}" for src, rc, log in bad))
+            tmp = f"{tag}.tmp.so"
+            res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                                 capture_output=True, text=True)
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+    BUILD_INFO["seconds"] = sp.seconds
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)

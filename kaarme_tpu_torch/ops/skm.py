@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from ..utils.codec import words_per_kmer
 from . import cuda_skm
 from .cuda_skm import EBITS, LMAX, M, content_words
@@ -196,6 +197,8 @@ def finalize_store(run_store, k: int, chunk_rows: int = 1 << 20,
         single_shot_rows = min(1 << 26, (6 << 30) // ((W + 1) * 12))
     if R * LMAX <= single_shot_rows:
         store, ndv = _expand_compact(run_store, k, kernels, bloom, hfn)
+        trace.count("finalize_chunks")
+        trace.count("host_syncs")
         return store, int(ndv[1])
 
     pad = (-R) % chunk_rows
@@ -208,10 +211,13 @@ def finalize_store(run_store, k: int, chunk_rows: int = 1 << 20,
         while True:
             new_acc, ndv = _expand_merge_at(acc, run_cols, s0, k=k, chunk=chunk_rows,
                                             kernels=kernels, bloom=bloom, hfn=hfn)
+            trace.count("finalize_chunks")
+            trace.count("host_syncs")
             nd = int(ndv[1])
             if nd <= acc[0].shape[0]:
                 acc = new_acc
                 break
+            trace.count("finalize_regrows")
             cap = next_store_size(max(nd, 2 * acc[0].shape[0]), coarse=True)
             acc = tuple(torch.cat([c, dead_fill(cap - c.shape[0], i == W, dev)])
                         for i, c in enumerate(acc))

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from ..utils.codec import words_per_kmer
 from . import _build
 from .cuda_table import _key_columns
@@ -95,6 +96,7 @@ def format_lines(keys, counts: torch.Tensor, *, k: int, mode: int, min_abundance
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_format_lines")
         format_lines.launches += 1
+        trace.count("host_syncs")
         nbytes, lines = res.tolist()
     return out[:nbytes], lines
 
@@ -159,21 +161,26 @@ def write_lines(path: str, parts, *, k: int, mode: int, min_abundance: int,
                 buf = torch.empty(min(n, rows) * line_bytes(k), dtype=torch.uint8, device=dev)
             for r0 in range(0, n, rows):
                 chunk = ([c[r0:r0 + rows] for c in keys], counts[r0:r0 + rows])
-                if buf is None:
-                    text, m = format_lines_plain(*chunk, **kw)
-                else:
-                    text, m = format_lines(*chunk, out=buf, **kw)
+                with trace.span("format"):
+                    if buf is None:
+                        text, m = format_lines_plain(*chunk, **kw)
+                    else:
+                        text, m = format_lines(*chunk, out=buf, **kw)
                 lines += m
                 nb = text.numel()
                 if nb == 0:
                     continue
                 if dev.type == "cpu":
-                    f.write(memoryview(text.numpy()))
+                    with trace.span("file_write"):
+                        f.write(memoryview(text.numpy()))
                     continue
-                if host is None or host.numel() < nb:
-                    host = torch.empty(nb, dtype=torch.uint8, pin_memory=True)
-                with torch.cuda.device(dev):
-                    host[:nb].copy_(text, non_blocking=True)
-                    torch.cuda.current_stream(dev).synchronize()
-                f.write(memoryview(host.numpy())[:nb])
+                with trace.span("d2h"):
+                    if host is None or host.numel() < nb:
+                        host = torch.empty(nb, dtype=torch.uint8, pin_memory=True)
+                    with torch.cuda.device(dev):
+                        host[:nb].copy_(text, non_blocking=True)
+                        trace.count("host_syncs")
+                        torch.cuda.current_stream(dev).synchronize()
+                with trace.span("file_write"):
+                    f.write(memoryview(host.numpy())[:nb])
     return lines

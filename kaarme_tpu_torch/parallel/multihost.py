@@ -47,7 +47,6 @@ import gzip
 import heapq
 import os
 import sys
-import time
 import warnings
 from contextlib import ExitStack
 
@@ -59,7 +58,7 @@ from ..io import fastio
 from ..io import reader as io_reader
 from ..models.sort_counter import CountOutput, rows_to_host, store_part
 from ..ops.sortcount import next_store_size
-from ..utils import codec
+from ..utils import codec, trace
 from ..utils.convert import store_from_numpy
 from .exchange import exchange_processes
 from .sharded import make_mesh
@@ -453,32 +452,31 @@ class MultiHostSortCounter(ShardedSortCounter):
         then the round (padded with separators) through ``_submit``."""
         if self._exchanged:
             raise RuntimeError("cannot add input after finalize")
-        t0 = time.perf_counter()
-        k = self.cfg.k
-        sb = self.nloc * self.cfg.batch_windows      # this host's windows per round
-        pending, pending_n, exhausted = [], 0, False
-        while True:
-            while not exhausted and pending_n < sb + k - 1:
-                c = next(chunks, None)
-                if c is None:
-                    exhausted = True
+        with trace.span("count", self.stats):
+            k = self.cfg.k
+            sb = self.nloc * self.cfg.batch_windows      # this host's windows per round
+            pending, pending_n, exhausted = [], 0, False
+            while True:
+                while not exhausted and pending_n < sb + k - 1:
+                    c = next(chunks, None)
+                    if c is None:
+                        exhausted = True
+                        break
+                    pending.append(np.asarray(c, np.uint8))
+                    pending_n += pending[-1].shape[0]
+                have = 1 if pending_n >= k else 0
+                if self._global_max(have) == 0:
                     break
-                pending.append(np.asarray(c, np.uint8))
-                pending_n += pending[-1].shape[0]
-            have = 1 if pending_n >= k else 0
-            if self._global_max(have) == 0:
-                break
-            stream = np.concatenate(pending) if pending else np.empty(0, np.uint8)
-            n_real = max(stream.shape[0] - k + 1, 0) if have else 0
-            span = np.full(sb + k - 1, codec.SEP, np.uint8)
-            m = min(stream.shape[0], span.shape[0])
-            span[:m] = stream[:m]
-            leftover = stream[sb:]
-            pending = [leftover] if leftover.shape[0] else []
-            pending_n = int(leftover.shape[0])
-            self._submit(span, min(n_real, sb))
-        self._merge()
-        self.stats["build_seconds"] += time.perf_counter() - t0
+                stream = np.concatenate(pending) if pending else np.empty(0, np.uint8)
+                n_real = max(stream.shape[0] - k + 1, 0) if have else 0
+                span = np.full(sb + k - 1, codec.SEP, np.uint8)
+                m = min(stream.shape[0], span.shape[0])
+                span[:m] = stream[:m]
+                leftover = stream[sb:]
+                pending = [leftover] if leftover.shape[0] else []
+                pending_n = int(leftover.shape[0])
+                self._submit(span, min(n_real, sb))
+            self._merge()
         return self
 
     def add_codes(self, codes: np.ndarray):
@@ -710,9 +708,8 @@ def run(argv=None):
         if args.merge_parts:
             dist.barrier(group=mesh.host_group)
             if c.pid == 0:
-                t0 = time.perf_counter()
-                total = merge_parts(args.output_file, c.nproc)
-                c.stats["merge_seconds"] = time.perf_counter() - t0
+                with trace.span("merge", c.stats):
+                    total = merge_parts(args.output_file, c.nproc)
                 print(f"merged {total} k-mers -> {args.output_file}", flush=True)
             dist.barrier(group=mesh.host_group)
         return 0, c

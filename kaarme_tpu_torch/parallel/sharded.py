@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -33,7 +32,7 @@ from ..models.tiling import TileBatcher
 from ..ops import sortcount
 from ..ops import table as table_ops
 from ..ops.hashing import hash_words, hash_words_np
-from ..utils import codec
+from ..utils import codec, trace
 from ..utils.device import resolve_device
 from ..utils.mathutils import capacity_log2
 from .exchange import exchange
@@ -140,25 +139,26 @@ class ShardedKmerCounter(CountOutput):
             self._flush(batch)
 
     def count_codes(self, codes: np.ndarray):
-        self.add_codes(np.asarray(codes, np.uint8))
-        self.finish()
+        with trace.span("count", self.stats):
+            self.add_codes(np.asarray(codes, np.uint8))
+            self.finish()
         return self
 
     def count_file(self, path: str, chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
                    prefetch: int = 4):
-        chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
-        if prefetch:
-            chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
-        for codes in chunks:
-            self.add_codes(codes)
-        self.finish()
+        with trace.span("count", self.stats):
+            chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
+            if prefetch:
+                chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
+            for codes in chunks:
+                self.add_codes(codes)
+            self.finish()
         return self
 
     def _flush(self, batch: np.ndarray):
         """One batch: shard d takes tiles [d, d + 1) * batch_tiles / ndev,
         makes their window keys from its transfer chunk (K3) and routes
         the valid windows, amount 1, to their owners."""
-        t0 = time.perf_counter()
         cfg = self.cfg
         n = cfg.tile * cfg.batch_tiles // self.ndev
         records = []
@@ -174,9 +174,8 @@ class ShardedKmerCounter(CountOutput):
         pend = self._route_insert(records)
         if pend is not None:
             self._grow_and_retry(pend)
-        self.stats["batches"] += 1
+        trace.count("batches", stats=self.stats)
         self.stats["windows_processed"] += cfg.tile * cfg.batch_tiles
-        self.stats["build_seconds"] += time.perf_counter() - t0
 
     def _route_insert(self, records):
         """Send each shard's (W key columns, amount) records to their
@@ -214,7 +213,7 @@ class ShardedKmerCounter(CountOutput):
         while True:
             live_tk, live_cn = self.dump()
             self.cap_log2 += 1
-            self.stats["grow_events"] += 1
+            trace.count("grow_events", stats=self.stats)
             self._alloc_table()
             recs = np.concatenate(
                 [np.concatenate([live_tk, live_cn.astype(np.uint32)[:, None]], axis=1), pend])

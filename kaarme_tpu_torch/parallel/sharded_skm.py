@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 from ..ops import cuda_skm, skm
+from ..utils import trace
 from .sharded import on_device
 from .sharded_sort import ShardedSortConfig, ShardedSortCounter, _Round
 
@@ -73,7 +74,7 @@ class ShardedSkmCounter(ShardedSortCounter):
         self._rounds.clear()
         while self._S < maxruns:
             self._S = min(2 * self._S, cuda_skm.SLOT_TILE)
-        self.stats["slot_grow_events"] += 1
+        trace.count("slot_grow_events", stats=self.stats)
         self.prefix = list(rnd.prefix_in)
         self._replay(rounds)
         return True

@@ -25,7 +25,6 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -35,7 +34,7 @@ from ..io import reader as io_reader
 from ..models.sort_counter import (SortedOutput, pack_chunk, rows_to_host, sized_store,
                                    store_part, to_device)
 from ..ops import sortcount
-from ..utils import codec
+from ..utils import codec, trace
 from ..utils.convert import store_from_numpy
 from .exchange import exchange, owner_by_hash
 from .sharded import on_device, resolve_devices
@@ -119,22 +118,20 @@ class ShardedSortCounter(SortedOutput):
         self._merge()
 
     def count_codes(self, codes: np.ndarray):
-        t0 = time.perf_counter()
-        self.add_codes(np.asarray(codes, np.uint8))
-        self.finish()
-        self.stats["build_seconds"] += time.perf_counter() - t0
+        with trace.span("count", self.stats):
+            self.add_codes(np.asarray(codes, np.uint8))
+            self.finish()
         return self
 
     def count_file(self, path: str, chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
                    prefetch: int = 4):
-        t0 = time.perf_counter()
-        chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
-        if prefetch:
-            chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
-        for codes in chunks:
-            self.add_codes(codes)
-        self.finish()
-        self.stats["build_seconds"] += time.perf_counter() - t0
+        with trace.span("count", self.stats):
+            chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
+            if prefetch:
+                chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
+            for codes in chunks:
+                self.add_codes(codes)
+            self.finish()
         return self
 
     def _submit(self, stream: np.ndarray, n_real: int):
@@ -158,7 +155,7 @@ class ShardedSortCounter(SortedOutput):
                       for (p, s, n, dense), dev in zip(fut.result(), self.devices)]
             self._drain(keep=self._max_inflight - 1)
             self._dispatch(chunks)
-            self.stats["batches"] += 1
+            trace.count("batches", stats=self.stats)
             self.stats["windows_processed"] += max(n_real, 0)
 
     # -- device steps ------------------------------------------------------
@@ -195,7 +192,7 @@ class ShardedSortCounter(SortedOutput):
         return False
 
     def _replay(self, rounds):
-        self.stats["replayed_rounds"] += len(rounds)
+        trace.count("replayed_rounds", len(rounds), self.stats)
         for rnd in rounds:
             self._dispatch(rnd.chunks)
             self._drain(keep=0)
@@ -214,7 +211,7 @@ class ShardedSortCounter(SortedOutput):
             cap = rnd.prefix_in[0][0].shape[0]
             if nd_max <= cap:
                 self._nd = [v[1] for v in vals]
-                self.stats["compactions"] += 1
+                trace.count("compactions", stats=self.stats)
                 continue
             rounds = [rnd] + [r for _, r in self._rounds]
             self._rounds.clear()
@@ -222,7 +219,7 @@ class ShardedSortCounter(SortedOutput):
                 min(cap + self.cfg.batch_windows, 2 * max(nd_max, cap)))
             if new_cap > self.cfg.prefix_cap:
                 self.cfg.prefix_cap = new_cap
-                self.stats["grow_events"] += 1
+                trace.count("grow_events", stats=self.stats)
             self.prefix = [sized_store(p, new_cap) for p in rnd.prefix_in]
             self._replay(rounds)
 
@@ -264,7 +261,7 @@ class ShardedSortCounter(SortedOutput):
         as the JAX package does after its exchange."""
         while nd_max > self.cfg.prefix_cap:
             self.cfg.prefix_cap *= 2
-            self.stats["grow_events"] += 1
+            trace.count("grow_events", stats=self.stats)
 
     def finalize_exchange(self):
         """Route every live record to the shard that owns its key and
@@ -272,23 +269,22 @@ class ShardedSortCounter(SortedOutput):
         self._merge()
         if self._exchanged:
             return
-        t0 = time.perf_counter()
-        cols = []
-        for (store, nd), dev in zip(self._kmer_stores(), self.devices):
-            with on_device(dev):
-                live = store[-1][:nd] > 0
-                cols.append(tuple(c[:nd][live] for c in store))
-        recv = self._exchange(cols)
-        self.prefix, self._nd = [], []
-        for got, dev in zip(recv, self.devices):
-            with on_device(dev):
-                store, ndv = sortcount.compact_clamped(got, self.cfg.kernels)
-            nd = int(ndv[1])
-            self.prefix.append(tuple(c[:nd] for c in store))
-            self._nd.append(nd)
-        self._retain(self._global_max(max(self._nd)))
-        self._exchanged = True
-        self.stats["exchange_seconds"] += time.perf_counter() - t0
+        with trace.span("exchange", self.stats):
+            cols = []
+            for (store, nd), dev in zip(self._kmer_stores(), self.devices):
+                with on_device(dev):
+                    live = store[-1][:nd] > 0
+                    cols.append(tuple(c[:nd][live] for c in store))
+            recv = self._exchange(cols)
+            self.prefix, self._nd = [], []
+            for got, dev in zip(recv, self.devices):
+                with on_device(dev):
+                    store, ndv = sortcount.compact_clamped(got, self.cfg.kernels)
+                nd = int(ndv[1])
+                self.prefix.append(tuple(c[:nd] for c in store))
+                self._nd.append(nd)
+            self._retain(self._global_max(max(self._nd)))
+            self._exchanged = True
 
     # -- output (``SortedOutput``: as_dict, write_output, find) ------------
 

@@ -165,7 +165,7 @@ def test_bloom_count_codes_matches_reference(k, mode):
     for key in ("new_in_first", "new_in_second", "bloom_bits", "bloom_hash_functions",
                 "windows_processed", "batches", "grow_events"):
         assert port.stats[key] == ref.stats[key], key
-    assert port.stats["new_in_second"] > 0 and "bloom_pass_seconds" in port.stats
+    assert port.stats["new_in_second"] > 0 and "bloom_pass1_seconds" in port.stats
     golden = codec.golden_count(codes, k)
     clip = (lambda c: c & 0xFFFF) if mode == 0 else (lambda c: min(c, 16383))
     want = {s: clip(c) for s, c in golden.items() if c >= 2}

@@ -879,8 +879,9 @@ def test_two_shards_on_one_card_equal_cpu_shards(dev, route):
                 compactor="merge" if route == "merge" else "auto", **kw), devices)
         c.count_codes(codes)
         shards = [(keys.tobytes(), cnt.tobytes()) for keys, cnt in c.shard_dumps()]
-        runs[devices[0]] = (shards, dict(c.stats, build_seconds=0, exchange_seconds=0,
-                                         write_seconds=0))
+        # timings and host syncs differ between devices; every other statistic agrees
+        runs[devices[0]] = (shards, {key: v for key, v in c.stats.items()
+                                     if not key.endswith("_seconds") and key != "host_syncs"})
     assert runs[dev] == runs["cpu"]
 
 

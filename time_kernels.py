@@ -62,8 +62,9 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
   configuration) counting chip_smoke's full-size FASTA (4.6 Mb genome,
   150 bp reads at 30x, written once and shared by the four processes);
   ``ms`` holds the median milliseconds of ``count_file`` (wall) and of
-  its device steps (``stats["build_seconds"]``), the digest is the
-  sorted dump's;
+  ``stats["build_seconds"]`` (the whole ``count_file``; the device steps
+  alone in a checkout from before the tracer), the digest is the sorted
+  dump's;
 - w1: not one kernel but the count file's write step, from the counted
   store to the closed file, on the same FASTA: the k=51 skm route's
   finalized store and the k=13 classic route's store (each counted once
@@ -406,6 +407,7 @@ def bloom_e2e_worker(root: str, reps: int) -> dict:
                     raise RuntimeError(f"bloom_e2e {name}: the CLI exited {rc}")
                 st = counter.stats
                 runs.append(dict(wall=wall, write=st["write_seconds"], count=st["build_seconds"],
+                                 # bloom_pass_seconds: the table's pass 1 before the tracer
                                  pass1=st.get("bloom_pass1_seconds", st.get("bloom_pass_seconds")),
                                  peak=torch.cuda.max_memory_allocated(),
                                  mallocs=torch.cuda.memory_stats().get("num_device_alloc", 0)
@@ -441,7 +443,7 @@ def table_worker(root: str, reps: int) -> dict:
     order = np.lexsort(tk.T[::-1])
     return dict(root=root, api="KmerCounter.count_file, k=51",
                 ms={"count_wall": statistics.median(walls[1:]) * 1e3,
-                    "device_steps": statistics.median(steps[1:]) * 1e3},
+                    "build_seconds": statistics.median(steps[1:]) * 1e3},
                 digest={"table_k51": [int(tk[order].astype(np.int64).sum()),
                                       int((cn[order] * np.arange(1, cn.shape[0] + 1)).sum())]})
 
