@@ -67,7 +67,8 @@ Run from the repository root.  It builds the port's CUDA kernels from
    counters of its kernels > 0 (K3 exactly once per dispatched classic
    superstep and Bloom pass-1 superstep, K4 once per merge superstep,
    B1 once per pass-1 superstep, B2 once per classic pass-2 superstep
-   and at least once in the skm finalize) and its peak device memory
+   and at least once in the skm finalize, E1 once per skm finalize chunk
+   attempt and never under ``--kernels plain``) and its peak device memory
    printed, and no call of ``hash_words``, ``torch.unique`` or
    ``bloom.set_bits`` (the torch chain B1 and B2 replace); then the
    probe table (``--backend table``, written in slot order, so compared
@@ -147,7 +148,14 @@ Run from the repository root.  It builds the port's CUDA kernels from
    epochs 1-3 on to EPOCH_MAX - 2 and across the wrap, == plain after
    each); and a 2^10-bit filter under heavy collision, poly-A (one root
    2^20 times), k=201 and k=13 on 777 windows, two batches each on one
-   scratch.
+   scratch;
+13. E1 (``kaarme_tpu_torch/ops/cuda_expand.py``: the skm finalize's
+   expansion of run rows into canonical keys) against its plain version
+   (``skm.expand_runs_plain``), bit for bit on every key and count
+   column, at the finalize's chunk (2^20 runs, k=51: 16.8 M rows), at
+   k=201 (W = 13), and on tails of no whole block at k=300 (W = 19) and
+   k=16; the 2^20-run cases timed beside the plain chain and the bound,
+   one launch a call.
 
 Each kernel phase also computes the kernel's bound at its shape: the
 least time the card could take, each input byte read once and each
@@ -159,7 +167,8 @@ each kernel's bound, its share and ``library_ms``: null, as no single
 PyTorch call computes any of these functions; T1, which is not a TPU
 kernel but replaces the JAX package's XLA probe rounds, W1, which
 replaces its host numpy writer, and B1 and B2, which replace its XLA
-Bloom filter ops, have their entries too), the card's
+Bloom filter ops, and E1, which replaces its fused jnp expansion, have
+their entries too), the card's
 name and power limit, and {"ok": true, "device": {...}}.  Exits
 non-zero without a CUDA device, and where the port has imported jax or
 kaarme_tpu.
@@ -1368,8 +1377,8 @@ def phase_small(tmp):
 
 
 def launch_counters():
-    from kaarme_tpu_torch.ops import (cuda_bloom, cuda_compact, cuda_merge, cuda_skm,
-                                      cuda_table, cuda_winkeys, writer)
+    from kaarme_tpu_torch.ops import (cuda_bloom, cuda_compact, cuda_expand, cuda_merge,
+                                      cuda_skm, cuda_table, cuda_winkeys, writer)
 
     return {"skm_dense": cuda_skm.run_rows_dense,
             "segsum_compact": cuda_compact.segsum_compact,
@@ -1379,7 +1388,8 @@ def launch_counters():
             "table_insert": cuda_table.table_insert,
             "format_lines": writer.format_lines,
             "bloom_insert": cuda_bloom.bloom_insert,
-            "bloom_gate": cuda_bloom.bloom_gate}
+            "bloom_gate": cuda_bloom.bloom_gate,
+            "expand_runs": cuda_expand.expand_runs}
 
 
 @contextlib.contextmanager
@@ -1483,7 +1493,7 @@ def counted(fn, label: str, uses=(), quiet: bool = False):
 
 def run_full(argv, label: str, uses=()):
     """One CLI run through ``counted``: its count file written by W1, or
-    under ``--kernels plain`` with no W1 launch."""
+    under ``--kernels plain`` with no W1 and no E1 launch."""
     from kaarme_tpu_torch import cli
 
     def go():
@@ -1494,8 +1504,9 @@ def run_full(argv, label: str, uses=()):
 
     plain = "--kernels" in argv and argv[argv.index("--kernels") + 1] == "plain"
     counter, launches = counted(go, label, uses if plain else (*uses, "format_lines"))
-    if plain and launches["format_lines"]:
-        raise AssertionError(f"{label}: W1 launched {launches['format_lines']} times")
+    if plain and (launches["format_lines"] or launches["expand_runs"]):
+        raise AssertionError(f"{label}: W1 launched {launches['format_lines']} times, E1 "
+                             f"{launches['expand_runs']}")
     return counter, launches
 
 
@@ -1509,7 +1520,8 @@ def check_launches(counter, launches, label: str, route: str, bloom: bool = Fals
     """K3 and K4 launched once per dispatched superstep of their route
     (replays included), K3 also once per Bloom pass-1 superstep; with -b,
     B1 once per pass-1 superstep and B2 once per pass-2 gate: per
-    dispatched classic superstep, at least once in the skm finalize."""
+    dispatched classic superstep, at least once in the skm finalize; E1
+    once per skm finalize chunk attempt (``finalize_chunks``)."""
     st = counter.stats
     steps = st["batches"] + st["replayed_supersteps"]
     pass1 = st.get("pass1_batches", 0) if bloom else 0
@@ -1518,7 +1530,8 @@ def check_launches(counter, launches, label: str, route: str, bloom: bool = Fals
     want = {"window_keys": pass1 + (0 if route == "skm" else steps),
             "merge_compact": steps if route == "merge" else 0,
             "bloom_insert": pass1,
-            "bloom_gate": gate if bloom else 0}
+            "bloom_gate": gate if bloom else 0,
+            "expand_runs": st.get("finalize_chunks", 0) if route == "skm" else 0}
     got = {name: launches[name] for name in want}
     if got != want:
         raise AssertionError(f"{label}: launches {got} != {want} ({st['batches']} supersteps, "
@@ -1616,7 +1629,7 @@ def phase_full(tmp):
     # the skm route (k >= 16 under auto)
     argv = [path, str(K), "-s", "8000000", "-a", "1", "-q"]
     counter, skm_launches = run_full(argv + ["-o", out("skm")], f"k={K} skm",
-                                     ("skm_dense", "segsum_compact"))
+                                     ("skm_dense", "segsum_compact", "expand_runs"))
     _, cnt = counter.dump()
     windows = n_reads * (150 - K + 1)
     if int(cnt.sum()) != windows:
@@ -1629,10 +1642,14 @@ def phase_full(tmp):
     if k1 != st["batches"] + st["replayed_supersteps"]:
         raise AssertionError(f"skm: K1 launched {k1} times for {st['batches']} supersteps and "
                              f"{st['replayed_supersteps']} replays")
+    if skm_launches["expand_runs"] != st["finalize_chunks"]:
+        raise AssertionError(f"skm: E1 launched {skm_launches['expand_runs']} times for "
+                             f"{st['finalize_chunks']} finalize chunks")
     print(f"full size k={K} skm: distinct {distinct}, sum of counts {int(cnt.sum())} == "
           f"valid windows; run-row overflow events {st['slot_grow_events']}; K1 launched on "
           f"every superstep: {k1} launches = {st['batches']} supersteps + "
-          f"{st['replayed_supersteps']} replayed")
+          f"{st['replayed_supersteps']} replayed; E1 launched once per finalize chunk: "
+          f"{skm_launches['expand_runs']}")
     del counter
     run_full(argv + ["-o", out("skm_plain"), "--kernels", "plain"], f"k={K} skm, plain")
     same_file(out("skm"), out("skm_plain"), f"k={K} skm kernels == plain")
@@ -1640,10 +1657,12 @@ def phase_full(tmp):
     # the slotted skm layout (K5), configured as the CLI configures skm
     counter, slotted_launches = counted(lambda: slotted_count(argv, out("slotted")),
                                         f"k={K} skm slotted S=96",
-                                        ("skm_slotted", "segsum_compact", "format_lines"))
+                                        ("skm_slotted", "segsum_compact", "format_lines",
+                                         "expand_runs"))
     st = counter.stats
     k5 = slotted_launches["skm_slotted"]
-    if slotted_launches["skm_dense"] or k5 != st["batches"] + st["replayed_supersteps"]:
+    if (slotted_launches["skm_dense"] or k5 != st["batches"] + st["replayed_supersteps"]
+            or slotted_launches["expand_runs"] != st["finalize_chunks"]):
         raise AssertionError(f"slotted: K5 launched {k5} times for {st['batches']} supersteps "
                              f"and {st['replayed_supersteps']} replays: {slotted_launches}")
     print(f"full size k={K} skm slotted: K5 launched on every superstep: {k5} launches = "
@@ -1692,7 +1711,8 @@ def phase_full(tmp):
     bloom = [path, str(K), "-b", "-u", "5000000", "-a", "2", "-q"]
     bloom_launches = {}
     for name, route, extra, uses in (
-            ("bloom_skm", "skm", [], ("window_keys", "skm_dense", "segsum_compact")),
+            ("bloom_skm", "skm", [], ("window_keys", "skm_dense", "segsum_compact",
+                                      "expand_runs")),
             ("bloom_classic", "classic", ["--pipeline", "classic"],
              ("window_keys", "segsum_compact")),
             ("bloom_merge", "merge", ["--pipeline", "classic", "--compactor", "merge"],
@@ -1715,7 +1735,8 @@ def phase_full(tmp):
                 "window_keys": classic_launches["window_keys"],
                 "merge_compact": merge_launches["merge_compact"],
                 "skm_slotted": slotted_launches["skm_slotted"],
-                "format_lines": skm_launches["format_lines"]}
+                "format_lines": skm_launches["format_lines"],
+                "expand_runs": skm_launches["expand_runs"]}
     launches["table_insert"], bloom_launches["table"] = table_runs(path, out, n_reads, distinct)
     launches["bloom_insert"], launches["bloom_gate"] = bloom_launches["table"]
     print(f"full size -b runs, (B1, B2) launches: {bloom_launches}")
@@ -1804,7 +1825,8 @@ def phase_sharded(files: dict):
         label = f"k={K} skm on {ndev} shards"
         counter, launches = sharded_run(
             lambda: parallel.ShardedSkmCounter(parallel.ShardedSkmConfig(**kw), (dev,) * ndev),
-            path, out(f"sharded_skm{ndev}"), label, ("skm_slotted", "segsum_compact"))
+            path, out(f"sharded_skm{ndev}"), label,
+            ("skm_slotted", "segsum_compact", "expand_runs"))
         st = counter.stats
         if launches["skm_slotted"] != ndev * (st["batches"] + st["replayed_rounds"]):
             raise AssertionError(f"{label}: K5 launched {launches['skm_slotted']} times")
@@ -2239,6 +2261,69 @@ def phase_w1(dev):
                                               "bound_ops")})
 
 
+E1_CASES = ((K, 1 << 20), (201, 1 << 20), (300, 4099), (16, 777))   # (k, runs); timed: 2^20
+
+
+def e1_runs(dev, k: int, R: int, seed: int):
+    """R run rows at k as a run store holds them, one buffer: random
+    content words, ell uniform in 1..16, counts 1..5 but every 20th run
+    dead (count 0), every 7th at 2^20 + 1.  Returns the Wc + 2 columns."""
+    import torch
+    from kaarme_tpu_torch.ops import skm
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wc = skm.content_words(k)
+    buf = torch.empty((wc + 2, R), dtype=torch.int32, device=dev)
+    buf[:wc] = torch.randint(-(1 << 31), 1 << 31, (wc, R), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+    buf[wc] = torch.randint(0, 16, (R,), generator=g, device=dev, dtype=torch.int32) << skm.EBITS
+    buf[wc + 1] = torch.randint(1, 6, (R,), generator=g, device=dev, dtype=torch.int32)
+    buf[wc + 1, ::7] = (1 << 20) + 1
+    buf[wc + 1, ::20] = 0
+    return tuple(buf.unbind(0))
+
+
+def phase_e1(dev):
+    """Phase 13: E1 (the skm finalize's expansion) against its plain
+    version, bit for bit on every column, at the finalize's chunk (2^20
+    runs, k=51), at k=201 (W = 13), at k=300 (W = 19) and k=16 on tails
+    of no whole block; the 2^20-run cases timed beside the plain chain
+    and the bound (the runs read once, the rows written once); one launch
+    a call."""
+    import torch
+    from kaarme_tpu_torch.ops import cuda_expand, skm
+
+    res = {}
+    for k, R in E1_CASES:
+        cols = e1_runs(dev, k, R, SEED + k)
+        cuda_expand.expand_runs.launches = 0
+        got = cuda_expand.expand_runs(cols, k)
+        want = skm.expand_runs_plain(cols, k)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err or cuda_expand.expand_runs.launches != 1:
+            raise AssertionError(f"E1 k={k} R={R}: kernel != plain (max abs err {err}), "
+                                 f"{cuda_expand.expand_runs.launches} launches")
+        del want
+        if R < 1 << 20:
+            print(f"E1 expand_runs k={k}: {R} runs -> {R * skm.LMAX} rows == plain")
+            continue
+        W = len(got) - 1
+        ms = cuda_ms(lambda: cuda_expand.expand_runs(cols, k))
+        plain_ms = cuda_ms(lambda: skm.expand_runs_plain(cols, k), reps=3)
+        # per row and key word: two funnel shifts, the pair reversal, compare, select
+        b = bound(cols, got, 24.0 * W * R * skm.LMAX)
+        print(f"E1 expand_runs k={k}: {R} runs -> {R * skm.LMAX} rows x {W}+1 cols == plain; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}), share {b['bound_ms'] / ms:.3f}")
+        res[k] = dict(ms=ms, plain_ms=plain_ms, **b)
+        del got, cols
+        torch.cuda.empty_cache()
+    out = dict(res[K], max_abs_err=0)
+    out.update({f"k201_{key}": v for key, v in res[201].items()})
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2293,6 +2378,8 @@ def main() -> int:
     w1 = phase_w1(dev)
     torch.cuda.empty_cache()
     b1, b2 = phase_bloom(dev)
+    torch.cuda.empty_cache()
+    e1 = phase_e1(dev)
     leaked = [m for m in sys.modules if m in ("jax", "kaarme_tpu") or m.startswith("kaarme_tpu.")]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -2327,6 +2414,9 @@ def main() -> int:
         dict(name="bloom_gate", route="cuda", source="kaarme_tpu_torch/csrc/bloom.cu",
              replaces="kaarme_tpu/ops/sortcount.py:771", launches=launches["bloom_gate"],
              **timed(b2)),
+        dict(name="expand_runs", route="cuda", source="kaarme_tpu_torch/csrc/expand_runs.cu",
+             replaces="kaarme_tpu/ops/skm.py:432", launches=launches["expand_runs"],
+             **timed(e1)),
     ]}
     print(json.dumps(table))
     print(smi)

@@ -7,10 +7,10 @@ itself (``cuda_skm``) —
 sort the run-store prefix ++ the new rows by their Wc + 1 words
 (``sortcount.lexsort``) and merge equal rows with the embedded-count
 segment-sum (K2, ``cuda_compact``, ebits = 26).  At finalize, every
-distinct run expands into its canonical k-mer keys, which are sorted and
-summed with K2's full_sum mode; with a Bloom filter, keys that miss it
-become sentinels first (the two-pass ``-b`` mode's gate on this
-pipeline).
+distinct run expands into its canonical k-mer keys (E1,
+``cuda_expand``), which are sorted and summed with K2's full_sum mode;
+with a Bloom filter, keys that miss it become sentinels first (the
+two-pass ``-b`` mode's gate on this pipeline).
 
 ``kernels`` ("cuda" or "plain") picks the hand-written kernels (their
 plain versions on CPU tensors) or the plain versions everywhere.
@@ -25,7 +25,7 @@ from ..utils.codec import words_per_kmer
 from . import cuda_skm
 from .cuda_skm import EBITS, LMAX, M, content_words
 from .sortcount import (M32, _is_sentinel_i32, _kernel_finish, _pairrev32, bloom_gate,
-                        compact_clamped, dead_fill, i32, lexsort, make_store,
+                        check_kernels, compact_clamped, dead_fill, i32, lexsort, make_store,
                         next_store_size, u32)
 
 
@@ -139,23 +139,45 @@ def _expand_keys(cw, ell, k: int):
                  .masked_fill(dead, M32).reshape(-1) for wi in range(W))
 
 
-def expand_chunk(run_cols, k: int, bloom=None, hfn: int = 0, kernels: str = "cuda"):
-    """(Wc content cols, meta col, count col) -> W int32 key columns +
-    int32 count column over R * LMAX rows, unsorted.  Dead run rows
-    (count 0) and slots past ell become sentinel keys with count 0, and
-    so do keys that miss the Bloom filter ``bloom`` (int32 words, ``hfn``
-    bits per key) when one is given: a run row packs up to LMAX windows,
-    so the two-pass mode's per-window gate (``sortcount.bloom_gate``)
-    applies here, where windows materialize."""
+def expand_runs_plain(run_cols, k: int) -> tuple:
+    """Plain PyTorch version of E1 (``cuda_expand.expand_runs``), its
+    definition: (Wc content cols, meta col, count col) -> W int32 key
+    columns + int32 count column over R * LMAX rows, unsorted; dead run
+    rows (count <= 0) and slots past ell are sentinel keys with count 0."""
     *cw, meta, cnt = run_cols
     ell = ((u32(meta) >> EBITS) & 15) + 1
     keys = _expand_keys([u32(c) for c in cw], ell, k)
     dead = (cnt <= 0).repeat_interleave(LMAX)
     keys = tuple(i32(x.masked_fill(dead, M32)) for x in keys)
-    if bloom is not None:
-        keys = bloom_gate(bloom, keys, hfn, kernels)
     counts = cnt.repeat_interleave(LMAX) * (1 - _is_sentinel_i32(keys))
     return keys + (counts,)
+
+
+def expand_chunk(run_cols, k: int, bloom=None, hfn: int = 0, kernels: str = "cuda"):
+    """(Wc content cols, meta col, count col) -> W int32 key columns +
+    int32 count column over R * LMAX rows, unsorted: E1 (``cuda_expand.
+    expand_runs``: the kernel on CUDA tensors, its plain version on CPU
+    ones) under ``kernels="cuda"``, the plain version ``expand_runs_plain``
+    under "plain".  Dead run rows (count 0) and slots past ell become
+    sentinel keys with count 0, and so do keys that miss the Bloom filter
+    ``bloom`` (int32 words, ``hfn`` bits per key) when one is given: a run
+    row packs up to LMAX windows, so the two-pass mode's per-window gate
+    (``sortcount.bloom_gate``) applies here, where windows materialize.
+    Runs in the span ``expand``, the finalize's expansion."""
+    check_kernels(kernels)
+    with trace.span("expand"):
+        if kernels == "cuda":
+            from . import cuda_expand
+
+            rows = cuda_expand.expand_runs(run_cols, k)
+        else:
+            rows = expand_runs_plain(run_cols, k)
+        if bloom is None:
+            return rows
+        keys = bloom_gate(bloom, rows[:-1], hfn, kernels)
+        counts = rows[-1]
+        counts.mul_(1 - _is_sentinel_i32(keys))    # in place: on the card, E1's count row
+        return keys + (counts,)
 
 
 def _expand_compact(run_cols, k: int, kernels: str, bloom=None, hfn: int = 0):
@@ -202,8 +224,13 @@ def finalize_store(run_store, k: int, chunk_rows: int = 1 << 20,
         return store, int(ndv[1])
 
     pad = (-R) % chunk_rows
-    run_cols = tuple(torch.cat([c, dead_fill(pad, i == len(run_store) - 1, dev)])
-                     for i, c in enumerate(run_store))
+    # the padded columns as rows of one buffer, which E1 reads where they lie
+    buf = torch.empty((len(run_store), R + pad), dtype=torch.int32, device=dev)
+    buf[:-1, R:] = -1
+    buf[-1, R:] = 0
+    for row, c in zip(buf, run_store):
+        row[:R] = c
+    run_cols = tuple(buf.unbind(0))
     cap = next_store_size(4 * chunk_rows, coarse=True)
     acc = make_store(cap, W, dev)
     nd = 0

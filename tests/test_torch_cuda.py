@@ -879,9 +879,11 @@ def test_two_shards_on_one_card_equal_cpu_shards(dev, route):
                 compactor="merge" if route == "merge" else "auto", **kw), devices)
         c.count_codes(codes)
         shards = [(keys.tobytes(), cnt.tobytes()) for keys, cnt in c.shard_dumps()]
-        # timings and host syncs differ between devices; every other statistic agrees
+        # timings, host syncs and kernel launches differ between devices; every
+        # other statistic agrees
         runs[devices[0]] = (shards, {key: v for key, v in c.stats.items()
-                                     if not key.endswith("_seconds") and key != "host_syncs"})
+                                     if not key.endswith("_seconds")
+                                     and key not in ("host_syncs", "expand_launches")})
     assert runs[dev] == runs["cpu"]
 
 
@@ -1137,3 +1139,104 @@ def test_b2_equals_plain(dev, case, layout):
         assert all(g.data_ptr() == c.data_ptr() for g, c in zip(got, cols))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _runs_on(dev, R, k, seed, negative=True):
+    from expand_rows import run_rows
+
+    return tuple(torch.from_numpy(c).to(dev) for c in run_rows(R, k, seed, negative))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,R", [(k, R) for k in (16, 17, 31, 32, 33, 48, 51, 63, 101, 201)
+                                 for R in (0, 1, 33, 1001)]
+                         + [(51, 1 << 20), (201, 1 << 16), (257, 1001), (300, 4099)])
+def test_e1_equals_plain(dev, k, R):
+    """E1 against its plain version (``skm.expand_runs_plain`` on the
+    card), bit for bit: separate columns (stacked by the wrapper) and
+    views of one buffer (read where they lie), no multiple of 32 runs or
+    of a block, the main path's 2^20-run chunk at k=51, and W > 16."""
+    from kaarme_tpu_torch.ops import cuda_expand, skm
+
+    cols = _runs_on(dev, R, k, seed=k + R)
+    want = skm.expand_runs_plain(cols, k)
+    buf = torch.stack(cols)
+    for layout in (cols, tuple(buf.unbind(0))):
+        cuda_expand.expand_runs.launches = 0
+        got = cuda_expand.expand_runs(layout, k)
+        assert cuda_expand.expand_runs.launches == int(R > 0)
+        assert len(got) == len(want) == (k + 15) // 16 + 1
+        for a, b in zip(got, want):
+            assert a.device == b.device and torch.equal(a, b)
+        if R:
+            assert all(g.untyped_storage().data_ptr() == got[0].untyped_storage().data_ptr()
+                       for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bloom", [False, True], ids=["no_bloom", "bloom"])
+@pytest.mark.parametrize("chunked", [False, True], ids=["single_shot", "chunked"])
+def test_e1_finalize_store_equals_plain(dev, monkeypatch, chunked, bloom):
+    """``skm.finalize_store`` on the card under ``kernels="cuda"`` (E1,
+    then B2 with a filter, sort and K2) equals its ``kernels="plain"``
+    result: one shot, and chunks of 256 runs into an accumulator that
+    regrows; E1 runs once per chunk attempt and the plain chain never."""
+    from kaarme_tpu_torch.ops import cuda_expand, skm
+    from kaarme_tpu_torch.utils import trace
+
+    k = 51
+    cols = _runs_on(dev, 5003, k, seed=5, negative=False)
+    kw = dict(chunk_rows=256, single_shot_rows=0) if chunked else {}
+    if bloom:
+        words = np.random.default_rng(6).integers(0, 1 << 32, 1 << 10, dtype=np.uint64)
+        kw.update(bloom=_dev(words.astype(np.uint32), dev), hfn=2)
+    want, nd_want = skm.finalize_store(cols, k, kernels="plain", **kw)
+    cuda_expand.expand_runs.launches = 0
+    stats = {}
+    monkeypatch.setattr(skm, "_expand_keys", None)     # the plain chain must not run
+    with trace.span("finalize", stats):
+        got, nd = skm.finalize_store(cols, k, kernels="cuda", **kw)
+    assert nd == nd_want > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert cuda_expand.expand_runs.launches == stats["expand_launches"] == stats["finalize_chunks"]
+    if chunked:
+        assert stats["finalize_regrows"] >= 1
+    if bloom:
+        full, nd_full = skm.finalize_store(cols, k, kernels="cuda")
+        assert 0 < nd < nd_full
+        # the gated rows are E1's buffer: B2 gates its key rows and the
+        # counts are zeroed in its count row, with no column beside it
+        rows = skm.expand_chunk(cols, k, kw["bloom"], 2)
+        assert all(c.untyped_storage().data_ptr() == rows[0].untyped_storage().data_ptr()
+                   for c in rows)
+
+
+@pytest.mark.cuda
+def test_e1_launches_equal_finalize_chunks_of_a_job(dev):
+    """A small SkmCounter job on the card: ``expand_launches`` in its
+    stats equals ``finalize_chunks`` and E1's launch count, and its
+    finalized store equals the ``kernels="plain"`` job's."""
+    from kaarme_tpu_torch.models.skm_counter import SkmCounter, SkmCounterConfig
+    from kaarme_tpu_torch.ops import cuda_expand
+
+    rng = np.random.default_rng(12)
+    genome = rng.integers(0, 4, 50_000).astype(np.uint8)
+    starts = rng.integers(0, 50_000 - 150, 4000)
+    reads = np.full((4000, 151), 4, np.uint8)
+    reads[:, :150] = genome[starts[:, None] + np.arange(150)]
+    codes = reads.reshape(-1)
+    kw = dict(k=51, min_abundance=1, batch_windows=1 << 16, superbatch_batches=2,
+              prefix_cap=1 << 16)
+    cuda_expand.expand_runs.launches = 0
+    c = SkmCounter(SkmCounterConfig(device="cuda", **kw)).count_codes(codes)
+    got = c.dump()
+    assert c.stats["finalize_chunks"] >= 1
+    assert cuda_expand.expand_runs.launches == c.stats["expand_launches"] \
+        == c.stats["finalize_chunks"]
+    p = SkmCounter(SkmCounterConfig(device="cuda", kernels="plain", **kw)).count_codes(codes)
+    assert cuda_expand.expand_runs.launches == c.stats["finalize_chunks"]
+    assert "expand_launches" not in p.stats
+    for a, b in zip(got, p.dump()):
+        assert np.array_equal(a, b)
+    assert int(got[1].sum()) == 4000 * (150 - 51 + 1)

@@ -160,7 +160,7 @@ def test_stats_totals_equal_the_span_sums(tmp_path, rec, route):
     want = {"count", "write", "reader_wait", "read", "encode", "pack", "to_device", "dispatch",
             "drain", "format", "file_write"}
     if route.startswith("skm"):
-        want |= {"finalize", "pack_wait"}
+        want |= {"finalize", "expand", "pack_wait"}
     if route.endswith("bloom"):
         want.add("bloom_pass1")
     assert want <= {r[0] for r in trace.records()}
@@ -262,13 +262,14 @@ def test_replays_nest_under_drain_and_count_their_dispatches(rec):
 
 
 @pytest.mark.parametrize("chunk_rows,acc", [(64, "grows"), (1 << 20, "single")])
-def test_finalize_counts_its_chunks_regrows_and_syncs(chunk_rows, acc):
+def test_finalize_counts_its_chunks_regrows_and_syncs(chunk_rows, acc, rec):
     c = SkmCounter(_small_skm()).count_codes(_codes(_reads(n_reads=800)))
     run_cols = tuple(col[: c.n_used] for col in c.prefix)
     stats = {}
     with trace.span("finalize", stats):
         store, nd = skm.finalize_store(run_cols, 31, chunk_rows=chunk_rows,
                                        single_shot_rows=0 if acc == "grows" else None)
+    expand = [r for r in trace.records() if r[0] == "expand"]
     want, want_nd = c.finalize_device()
     assert nd == want_nd
     assert all(torch.equal(a[:nd], b[:nd]) for a, b in zip(store, want))
@@ -279,6 +280,9 @@ def test_finalize_counts_its_chunks_regrows_and_syncs(chunk_rows, acc):
         assert stats["finalize_regrows"] >= 1
         assert stats["finalize_chunks"] == chunks + stats["finalize_regrows"]
     assert stats["host_syncs"] == stats["finalize_chunks"]
+    # one expansion span a chunk attempt, inside the finalize
+    assert len(expand) == stats["finalize_chunks"] and {r[4] for r in expand} == {"finalize"}
+    assert 0 < stats["expand_seconds"] <= stats["finalize_seconds"]
 
 
 def test_kernel_build_and_the_counters_are_spans_of_the_tracer():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one card, in turns, on chip_smoke's inputs.
 
-    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|bloom|table|w1|bloom_e2e OTHER_ROOT \
+    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|bloom|table|w1|bloom_e2e|e1 OTHER_ROOT \
         [--reps 5]
 
 Run from the repository root.  Times a kernel of this checkout and of the
@@ -74,7 +74,20 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
   buffer); one without it times the host path it ran before W1:
   ``live_rows_to_host`` + ``_format_lines``, kept below as private
   copies.  ``ms`` holds the median host milliseconds of the step, the
-  digest is the file's SHA-256.
+  digest is the file's SHA-256;
+- e1: the skm finalize's expansion of one chunk of run rows,
+  ``skm.expand_chunk(cols, k)`` (E1 where the checkout has
+  ``ops/cuda_expand.py``, the plain PyTorch chain where it has not) and
+  ``skm.expand_chunk(cols, k, kernels="plain")`` (the plain chain in
+  both), on 2^20 synthetic run rows at k=51 (the finalize's chunk) and
+  k=201, made on the card from a fixed seed as one buffer (a run
+  store's layout): random content words, ell uniform in 1 .. 16, counts
+  1 .. 5 with every 20th run dead.  Beside each call's CUDA-event
+  median, ``ms`` holds ``<name>_dev``, the card's time (the profiler's
+  sum over the call's kernels, copies and memsets), ``launches`` the
+  device operations of a call and ``ops`` the aten ops it dispatches;
+  ``bound_ms`` is the bytes once (the rows written, the runs read) at
+  3.35 TB/s.
 
 Where a checkout's K1, K3 or K5 takes codes (before its chunk-input
 kernel), the timed call is ``sortcount.codes_from_chunk`` followed by it,
@@ -544,6 +557,59 @@ def w1_worker(root: str, reps: int) -> dict:
     return out
 
 
+def e1_worker(cs, dev, reps: int) -> dict:
+    """The finalize chunk's expansion (``e1`` above): the call, the card's
+    time and the launches and aten ops of one call, of both routes."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from kaarme_tpu_torch.ops import skm
+
+    R = 1 << 20
+    api = ("E1" if importlib.util.find_spec("kaarme_tpu_torch.ops.cuda_expand") is not None
+           else "the plain chain")
+    out = dict(api=api, ms={}, digest={}, launches={}, ops={}, bound_ms={})
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Ops.n += 1
+            return func(*args, **(kwargs or {}))
+
+    for k in (cs.K, 201):
+        g = torch.Generator(device=dev)
+        g.manual_seed(k)
+        wc = (15 + k + 15) // 16
+        buf = torch.empty((wc + 2, R), dtype=torch.int32, device=dev)
+        buf[:wc] = torch.randint(-(1 << 31), 1 << 31, (wc, R), generator=g, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
+        buf[wc] = torch.randint(0, 16, (R,), generator=g, device=dev) << 26 | 1
+        buf[wc + 1] = torch.randint(1, 6, (R,), generator=g, device=dev)
+        buf[wc + 1, ::20] = 0
+        cols = tuple(buf.unbind(0))
+        w = (k + 15) // 16
+        out["bound_ms"][f"k{k}"] = (R * 16 * (w + 1) + R * (wc + 2)) * 4 / 3.35e12 * 1e3
+        for name, kernels in ((f"k{k}", "cuda"), (f"k{k}_plain", "plain")):
+            fn = lambda: skm.expand_chunk(cols, k, kernels=kernels)
+            out["digest"][name] = digest(fn())
+            out["ms"][name] = cs.cuda_ms(fn, reps)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0]
+            out["ms"][f"{name}_dev"] = sum(e.device_time_total for e in ev) / reps / 1e3
+            out["launches"][name] = sum(e.count for e in ev) / reps
+            Ops.n = 0
+            with Ops():
+                fn()
+            out["ops"][name] = Ops.n
+            torch.cuda.synchronize()
+        del buf, cols
+        torch.cuda.empty_cache()
+    return out
+
+
 def worker(kernel: str, root: str, reps: int) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -562,6 +628,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
         return t1_worker(cs, dev, root, reps)
     if kernel == "bloom":
         return bloom_worker(cs, dev, root, reps)
+    if kernel == "e1":
+        return dict(root=root, **e1_worker(cs, dev, reps))
     api, calls = {"k1": k1_calls, "k2": k2_calls, "k3": k3_calls, "k4": k4_calls,
                   "k5": k5_calls}[kernel](cs, dev)
     out = dict(root=root, api=api, ms={}, digest={})
@@ -579,7 +647,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
     ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "t1", "bloom", "table",
-                                         "w1", "bloom_e2e"),
+                                         "w1", "bloom_e2e", "e1"),
                     required=True)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
