@@ -63,25 +63,25 @@ def controls(cfg: dict, path: str, dev) -> dict:
 
 
 def readings(cell: dict, seed: int, program: bool, device: str = "cuda") -> list:
-    """[(side, checks)] of one seed: the program's job, then each control."""
-    import torch
-
-    cfg, dev = cell["config"], torch.device(device)
+    """[(side, checks)] of one seed: the program's job, then each control,
+    each judged in one key-hash part a card of the cell."""
+    cfg, devs = cell["config"], run.cards(cell["chips"], device)
     work = tempfile.mkdtemp(prefix="kbench-control-")
     try:
         inp = gen.write_input(os.path.join(work, "reads.fa"), cell["params"], seed, cfg["k"])
-        out, rows = [], run.reference_rows(cfg, inp, dev)
+        out, rows = [], list(run.reference_parts(cfg, inp, devs))
         if program:
             from kaarme_tpu_torch import cli
 
             counts_path = os.path.join(work, "reads.kaarme_counts")
             rc, counter = run._job(cli, [inp["path"], str(cfg["k"]), *cfg["flags"], "-o",
                                          counts_path, "--device", device], None)
-            keys, counts, text = run.judged_outputs(counter, counts_path, cfg["k"], dev)
+            store, text = run.judged_outputs(counter, counts_path, cfg["k"], devs)
             del counter
-            out.append(("program", run.compare(cfg, rows, keys, counts, text, int(rc != 0))))
-        for name, (keys, counts, text) in controls(cfg, inp["path"], dev).items():
-            out.append((name, run.compare(cfg, rows, keys, counts, text, 0)))
+            out.append(("program", run.compare(cfg, inp, rows, store, text, int(rc != 0))))
+        for name, (keys, counts, text) in controls(cfg, inp["path"], devs[0]).items():
+            store = run.joined(run.into_parts(keys, counts, devs))
+            out.append((name, run.compare(cfg, inp, rows, store, text, 0)))
         return out
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -2,6 +2,13 @@
 file against the plain reference, number by number, each against its
 limit.
 
+The store and the reference are compared in key-hash parts
+(``reference.kmer_count.part_of``), one part to a card of the cell,
+one part after another: each part's numbers are summed over the parts,
+and each part's rows are dropped before the next part is drawn, so that
+a card holds one part's rows and temporaries at a time.  With one part
+this is the comparison of the whole store.
+
 - ``store_rows_off`` (exact, limit 0): keys whose store count differs
   from the reference's.  The store is every live row (count > 0) of the
   counter's ``dump_columns()``, before filtering and clipping: every
@@ -13,14 +20,16 @@ limit.
 - ``bloom_singletons_kept`` (``-b`` only): the keys the reference counts
   once that the store holds.  The configuration states the filter's
   false-positive rate (``-f``); the limit is that rate times the
-  reference's count-1 keys, with four binomial standard deviations of
-  room (which matters only where singletons are few), so that a filter
-  that keeps the singletons out as stated passes and one that lets them
-  through fails.
+  reference's count-1 keys (both summed over the parts), with four
+  binomial standard deviations of room (which matters only where
+  singletons are few), so that a filter that keeps the singletons out
+  as stated passes and one that lets them through fails.
 - ``file_lines_off`` (exact, limit 0): lines of the count file that the
   reference's count file lacks, plus the reverse (as multisets: 0 when
   the files are equal byte for byte, and for a file in another row
-  order).
+  order).  The reference's file is rendered from every part's rows that
+  it holds (clipped count at least ``-a``), merged into key order on the
+  first part's device.
 - ``jobs_failed`` (limit 0): jobs of the window that exited non-zero or
   raised.
 """
@@ -100,19 +109,35 @@ def file_lines_off(expected: bytes, got: bytes) -> int:
     return sum(((a - b) + (b - a)).values())
 
 
-def judge(k: int, argv, ref_keys, ref_counts, keys, counts, text: bytes,
-          jobs_failed: int) -> tuple:
-    """The compared numbers of one judged job (``keys`` already in the
-    reference's rows, ``text`` the count file's bytes) as {name: {value,
-    limit}}, and what is only reported: with -b, the reference's count-1
-    keys."""
+def judge(k: int, argv, parts, text: bytes, jobs_failed: int) -> tuple:
+    """The compared numbers of one judged job as {name: {value, limit}},
+    and what is only reported: the reference's windows and, with -b, its
+    count-1 keys.  ``parts`` yields, one key-hash part at a time, the
+    reference's (keys, counts) and the store's (keys, counts), all on the
+    part's device and in the reference's key rows; ``text`` is the count
+    file's bytes."""
     bloom = "-b" in argv
-    a = flag(argv, "-a", 2)
+    a, mode = flag(argv, "-a", 2), flag(argv, "-m", 2)
     if bloom and a < 2:
         # the -b file would then hold the filter's false positives too
         raise ValueError("the -b comparison needs -a 2 or more")
-    off, kept, singles = store_rows_off(ref_keys, ref_counts, keys, counts, bloom)
-    expected = ref.render(ref_keys, ref_counts, k=k, mode=flag(argv, "-m", 2), min_abundance=a)
+    off = kept = singles = windows = 0
+    lines = []                                 # each part's rows of the count file
+    for part in parts:
+        ref_keys, ref_counts, keys, counts = part
+        del part
+        o, kp, s = store_rows_off(ref_keys, ref_counts, keys, counts, bloom)
+        off, kept, singles = off + o, kept + kp, singles + s
+        windows += int(ref_counts.sum())
+        home = lines[0][0].device if lines else ref_keys.device
+        keep = (ref_counts > 0) & (ref.clip(ref_counts, mode) >= a)
+        lines.append((ref_keys[keep].to(home), ref_counts[keep].to(home)))
+        del ref_keys, ref_counts, keys, counts, keep
+    keys, counts = (torch.cat(c) for c in zip(*lines))
+    del lines
+    order = ref.lexsort(keys)          # the parts' rows into key order
+    expected = ref.render(keys[order], counts[order], k=k, mode=mode, min_abundance=a)
+    del keys, counts, order
     out = {"jobs_failed": {"value": jobs_failed, "limit": 0},
            "store_rows_off": {"value": off, "limit": 0}}
     if bloom:
@@ -120,7 +145,10 @@ def judge(k: int, argv, ref_keys, ref_counts, keys, counts, text: bytes,
             "value": kept, "limit": singletons_allowed(singles, flag(argv, "-f", 0.01))}
     out["file_lines_off"] = {"value": file_lines_off(expected.cpu().numpy().tobytes(), text),
                              "limit": 0}
-    return out, ({"reference_singletons": singles} if bloom else {})
+    info = {"reference_windows": windows}
+    if bloom:
+        info["reference_singletons"] = singles
+    return out, info
 
 
 def ok(numbers: dict) -> bool:

@@ -1,5 +1,7 @@
-"""device_idle_pct: the share of the traced window in which no kernel,
-copy or memset ran on the card (``torch.profiler``)."""
+"""device_idle_pct: the mean over the cell's cards of the share of the
+traced window in which no kernel, copy or memset ran on that card
+(``torch.profiler``; ``trace.device_summary``'s ``busy_s`` is the mean
+of the cards' busy times)."""
 
 
 def read(rec):

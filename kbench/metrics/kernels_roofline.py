@@ -2,10 +2,12 @@
 device time of their work would take.  The work is the job's, not its
 kernels': its 2-bit codes read once, its distinct store rows (key words
 and count) written once and its count file's text written once, at the
-HBM rate (``kbench/roofline.py``; bytes set the bound, no operations are
-counted).  The time is the summed device time of every kernel and
-library kernel in the traced window (copies and memsets excluded), over
-the window's whole jobs."""
+HBM rate of one card (``kbench/roofline.py``; bytes set the bound, no
+operations are counted).  The time is the summed device time of every
+kernel and library kernel in the traced window (copies and memsets
+excluded), summed over the cell's cards too, over the window's whole
+jobs: a job's least bytes at one card's rate against all the kernel
+time the job took on every card."""
 
 from kbench import roofline
 

@@ -15,15 +15,22 @@ PyTorch (CPU or card), written from the count file's definition alone.
   16383)``), is at least ``-a``; the sort backend writes them in key
   order.
 
-Imports torch alone: nothing of the program, nor JAX.
+A file is counted in key-hash parts (``count_part``), one part to a card
+of the cell: ``part_of`` assigns every key row a part by a 64-bit mix of
+its own words (nothing of the program's routing), and part p is counted
+on its card from the whole file, read in blocks of whole lines, so that
+no card holds more than one part's rows or one block's temporaries.
+
+Imports torch and numpy alone: nothing of the program, nor JAX.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 WORD = 31                  # bases per int64 key word
-BLOCK = 1 << 24            # window starts counted at a time
+BLOCK = 1 << 24            # window starts counted, or file bytes decoded, at a time
 ROWS = 1 << 22             # rows rendered at a time
 MAX_DIGITS = 5             # a clipped count is at most 65535
 
@@ -119,6 +126,51 @@ def merge_rows(keys: torch.Tensor, counts: torch.Tensor):
     return keys[new], sums.index_add_(0, seg, counts)
 
 
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix(z: torch.Tensor) -> torch.Tensor:
+    """The splitmix64 finaliser on int64 bit patterns (products wrap)."""
+    z = (z ^ _shr(z, 30)) * (0xBF58476D1CE4E5B9 - (1 << 64))
+    z = (z ^ _shr(z, 27)) * (0x94D049BB133111EB - (1 << 64))
+    return z ^ _shr(z, 31)
+
+
+def part_of(keys: torch.Tensor, parts: int) -> torch.Tensor:
+    """The part (0 .. parts - 1, int64) of each key row: the splitmix64
+    finaliser chained over the row's words (h = mix(h ^ word) from h =
+    0), as an unsigned 64-bit number modulo ``parts``."""
+    h = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
+    if parts == 1:
+        return h
+    for j in range(keys.shape[1]):
+        h = _mix(h ^ keys[:, j])
+    r = torch.remainder(h, parts)          # of the bits as unsigned: 2^64 more where h < 0
+    return torch.where(h < 0, (r + (1 << 64) % parts) % parts, r)
+
+
+def line_blocks(buf: np.ndarray, size: int = BLOCK):
+    """[start, end) of consecutive pieces of ``buf`` that each end after a
+    newline (the last at the end of ``buf``): whole lines of at most
+    ``size`` bytes together, or one line where a line is longer."""
+    a, n = 0, buf.shape[0]
+    while a < n:
+        b = min(a + size, n)
+        if b < n:
+            nl = np.flatnonzero(buf[a:b] == ord("\n"))
+            if nl.size:
+                b = a + int(nl[-1]) + 1
+            else:                          # a line longer than size: to its end
+                while not nl.size and b < n:
+                    b0, b = b, min(b + size, n)
+                    nl = b0 + np.flatnonzero(buf[b0:b] == ord("\n"))
+                b = int(nl[0]) + 1 if nl.size else n
+        yield a, b
+        a = b
+
+
 def count_codes(c: torch.Tensor, k: int, block: int = BLOCK):
     """(distinct keys (U, key_words(k)) in key order, counts (U,) int64)
     of every valid window of ``c``, counted ``block`` starts at a time."""
@@ -169,10 +221,29 @@ def render(keys: torch.Tensor, counts: torch.Tensor, *, k: int, mode: int,
     return torch.cat(out)
 
 
-def count_file(path: str, k: int, device) -> tuple:
-    """(codes, keys, counts) of the FASTA file at ``path`` on ``device``."""
-    with open(path, "rb") as f:
-        buf = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8)
-    codes = codes_from_fasta(buf.to(device))
-    keys, counts = count_codes(codes, k)
-    return codes, keys, counts
+def count_part(path: str, k: int, device, part: int = 0, parts: int = 1,
+               block: int = BLOCK) -> tuple:
+    """(distinct keys in key order, counts int64) of the valid windows of
+    the FASTA file at ``path`` whose key lies in ``part`` of ``parts``
+    (``part_of``), on ``device``.  The file is decoded ``line_blocks`` at
+    a time; a block's windows, with the k - 1 codes before it, are keyed,
+    the part's rows kept and merged, and the blocks' rows merged last."""
+    buf = np.fromfile(path, np.uint8)
+    carry = torch.zeros(0, dtype=torch.uint8, device=device)
+    keys, cnts = [], []
+    for a, b in line_blocks(buf, block):
+        c = torch.cat([carry, codes_from_fasta(torch.from_numpy(buf[a:b]).to(device))])
+        carry = c[max(c.shape[0] - (k - 1), 0):]
+        kk = window_keys(c, k)
+        if parts > 1:
+            kk = kk[part_of(kk, parts) == part]
+        kk, cn = merge_rows(kk, torch.ones(kk.shape[0], dtype=torch.int64, device=device))
+        keys.append(kk)
+        cnts.append(cn)
+    if not keys:
+        return (torch.zeros((0, key_words(k)), dtype=torch.int64, device=device),
+                torch.zeros(0, dtype=torch.int64, device=device))
+    if len(keys) == 1:
+        return keys[0], cnts[0]
+    keys, cnts = torch.cat(keys), torch.cat(cnts)
+    return merge_rows(keys, cnts)

@@ -1,6 +1,8 @@
 """The harness end to end on the CPU at a small size: sound runs come out
 correct, runs with the timed path broken underneath and the controls come
-out not correct, and without a card it refuses to run."""
+out not correct, and without a card it refuses to run.  The judge reads
+alike in one key-hash part and in four (four CPU devices), and a cell
+sharded over four CPU shards is judged in four parts."""
 
 import json
 import os
@@ -26,12 +28,39 @@ def small(name, genome=20_000):
     return cell
 
 
+def four_shards(genome=20_000):
+    """A four-card cell built here, not in BENCHMARK.json: ``ecoli-k51.err1pct``
+    sharded over four CPU shards (``--devices 4``), judged in four parts."""
+    cell = small("ecoli-k51.err1pct", genome)
+    cell["chips"] = 4
+    cell["config"]["flags"] = ["--devices", "4", *cell["config"]["flags"]]
+    return cell
+
+
+def _judged_in_one_part_too(monkeypatch) -> list:
+    """Make ``run.compare`` judge the same outputs in one part as well;
+    returns the list of one-part checks, one per judged job."""
+    seen, compare = [], run.compare
+
+    def both(cfg, inp, reference, store, text, jobs_failed):
+        whole = [tuple(torch.cat(c) for c in zip(*store))]
+        seen.append(compare(cfg, inp, run.reference_parts(cfg, inp, [torch.device("cpu")]),
+                            whole, text, jobs_failed))
+        return compare(cfg, inp, reference, store, text, jobs_failed)
+
+    monkeypatch.setattr(run, "compare", both)
+    return seen
+
+
 @pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("trace", [0, 1])
-def test_a_sound_run_is_correct(name, trace):
-    res = run.run_cell(small(name), 2**31 + 17, 0.3, bool(trace), device="cpu")
+@pytest.mark.parametrize("parts", [1, 4])
+def test_a_sound_run_is_correct(monkeypatch, name, trace, parts):
+    one_part = _judged_in_one_part_too(monkeypatch)
+    res = run.run_cell(small(name), 2**31 + 17, 0.3, bool(trace), device="cpu", parts=parts)
     assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 2
-    assert list(res)[-1] == "checks"
+    assert list(res)[-1] == "checks" and res["checks"] == one_part[-1]
+    assert res["device"]["memory_peak_bytes_per_card"] == [0]
     exact = {n: d for n, d in res["checks"].items() if n != "bloom_singletons_kept"}
     assert all(d["value"] == 0 == d["limit"] for d in exact.values())
     assert ("bloom_singletons_kept" in res["checks"]) == ("bf" in name)
@@ -78,9 +107,19 @@ def _passes_every_key(bf2, keys, hfn, kernels="cuda"):
     return keys
 
 
+def _drops_a_bucket(exchange):
+    def wrapped(shard_cols, owners, devices):
+        """Source shard 0's records for owner shard 1 never arrive."""
+        keep = owners[0] != 1
+        return exchange([tuple(c[keep] for c in shard_cols[0]), *shard_cols[1:]],
+                        [owners[0][keep], *owners[1:]], devices)
+    return wrapped
+
+
 def _break(monkeypatch, fault):
     from kaarme_tpu_torch.models import skm_counter, sort_counter
     from kaarme_tpu_torch.ops import skm, sortcount, writer
+    from kaarme_tpu_torch.parallel import sharded_sort
 
     if fault == "step_returns_state_unchanged":
         monkeypatch.setattr(skm_counter.SkmCounter, "_dispatch", _unchanged_step)
@@ -94,6 +133,8 @@ def _break(monkeypatch, fault):
     elif fault == "gate_passes_every_key":
         monkeypatch.setattr(skm, "bloom_gate", _passes_every_key)
         monkeypatch.setattr(sortcount, "bloom_gate", _passes_every_key)
+    elif fault == "exchange_drops_a_bucket":
+        monkeypatch.setattr(sharded_sort, "exchange", _drops_a_bucket(sharded_sort.exchange))
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -101,12 +142,33 @@ def _break(monkeypatch, fault):
                                    "half_of_each_superstep_left_out",
                                    "count_altered_in_the_store",
                                    "byte_altered_in_the_count_file"])
-def test_a_broken_timed_path_is_not_correct(monkeypatch, name, fault):
-    # one card: the cells have no exchange between chips to leave out
+@pytest.mark.parametrize("parts", [1, 4])
+def test_a_broken_timed_path_is_not_correct(monkeypatch, name, fault, parts):
+    # one card: these cells have no exchange between chips to leave out;
+    # the four-shard cell's is left out below
+    one_part = _judged_in_one_part_too(monkeypatch)
     _break(monkeypatch, fault)
-    res = run.run_cell(small(name), 2**31 + 19, 0.2, False, device="cpu")
+    res = run.run_cell(small(name), 2**31 + 19, 0.2, False, device="cpu", parts=parts)
     assert not res["correct"] and res["failed"] >= 1
     assert any(d["value"] > d["limit"] for d in res["checks"].values())
+    assert res["checks"] == one_part[-1]
+
+
+def test_a_four_shard_run_is_correct(monkeypatch):
+    one_part = _judged_in_one_part_too(monkeypatch)
+    res = run.run_cell(four_shards(), 2**31 + 31, 0.3, False, device="cpu")
+    assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 2
+    assert res["device"]["count"] == 4 and len(res["device"]["memory_peak_bytes_per_card"]) == 4
+    assert all(d["value"] == 0 == d["limit"] for d in res["checks"].values())
+    assert res["checks"] == one_part[-1]
+
+
+def test_an_exchange_that_drops_a_bucket_is_not_correct(monkeypatch):
+    _break(monkeypatch, "exchange_drops_a_bucket")
+    res = run.run_cell(four_shards(), 2**31 + 37, 0.2, False, device="cpu")
+    assert not res["correct"] and res["failed"] >= 1
+    assert res["checks"]["store_rows_off"]["value"] > 0
+    assert res["checks"]["file_lines_off"]["value"] > 0
 
 
 def test_a_filter_that_keeps_nothing_out_is_not_correct(monkeypatch):

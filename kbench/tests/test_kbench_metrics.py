@@ -82,6 +82,70 @@ def test_device_summary_reads_busy_time_ops_and_named_gaps():
     assert tr.device_summary([], spans, 500, 0, 10_000_000) is None
 
 
+def _two_card_trace():
+    """Spans and events of a 10 ms window (perf_counter_ns 0 - 10 ms) in
+    which card 0 is busy from 2 to 8 ms and card 1 runs only its anchor,
+    before the window."""
+    spans = tr.Spans()
+    spans.records += [("job", spans.main, 0, 10_000_000),
+                      ("count_file", spans.main, 1_000_000, 9_000_000)]
+    a = 7_000.0 - 0.5
+
+    def us(ns):
+        return a + ns / 1e3
+
+    ev = [("kernel", "fill", us(-5_000), us(-4_000), 0),       # the anchors
+          ("kernel", "fill", us(-4_900), us(-3_900), 1),
+          ("kernel", "k1", us(2_000_000), us(8_000_000), 0)]
+    return ev, spans
+
+
+def test_device_summary_reads_each_card_on_its_own():
+    ev, spans = _two_card_trace()
+    s = tr.device_summary(ev, spans, -5_000, 0, 10_000_000)
+    assert s["busy_s_per_card"] == [pytest.approx(0.006), 0.0]
+    assert s["busy_s"] == pytest.approx(0.003)                # the mean of the cards
+    assert run.reader("device_idle_pct")(rec(trace=s)) == pytest.approx(70.0)
+    assert s["kernel_s"] == pytest.approx(0.006)              # summed over the cards
+    gaps = dict(s["idle_gaps"])                               # the mean of the cards
+    assert gaps["count_file"] == pytest.approx((0.002 + 0.008) / 2)
+    assert gaps["job"] == pytest.approx((0.002 + 0.002) / 2)
+    assert sum(gaps.values()) == pytest.approx(0.010 - s["busy_s"])
+    # card 1 idle while card 0 works the whole window: half the cards' time is idle
+    full = ev[:2] + [("kernel", "k1", ev[0][2] + 5, ev[0][2] + 10_005, 0)]
+    half = tr.device_summary(full, spans, -5_000, 0, 10_000_000)
+    assert run.reader("device_idle_pct")(rec(trace=half)) == pytest.approx(50.0)
+
+
+def test_device_summary_of_one_card_is_the_union_reading():
+    ev, spans = _two_card_trace()
+    one = [e for e in ev if e[4] == 0]
+    s = tr.device_summary(one, spans, -5_000, 0, 10_000_000)
+    # an event without a card index is on card 0: the readings are equal
+    assert tr.device_summary([e[:4] for e in one], spans, -5_000, 0, 10_000_000) == s
+    assert s["busy_s_per_card"] == [s["busy_s"]] and s["busy_s"] == pytest.approx(0.006)
+    assert dict(s["idle_gaps"]) == {"count_file": pytest.approx(0.002),
+                                    "job": pytest.approx(0.002)}
+
+
+def test_the_peak_is_taken_over_cards(monkeypatch):
+    import torch
+
+    peak = {0: 5, 1: 9, 2: 7, 3: 1}
+    calls = []
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda d: peak[d.index])
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda d: calls.append(("reset", d.index)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d: calls.append(("sync", d.index)))
+    devs = run.cards(4, "cuda")
+    assert devs == [torch.device("cuda", i) for i in range(4)]
+    run.synchronize(devs)
+    run.reset_peaks(devs + devs[:1])                 # a card listed twice is reset once
+    assert calls == [("sync", i) for i in range(4)] + [("reset", i) for i in range(4)]
+    assert run.peaks(devs) == [5, 9, 7, 1] and max(run.peaks(devs)) == 9
+    assert run.peaks(run.cards(4, "cpu")) == [0, 0, 0, 0]
+
+
 def test_spans_wrap_and_unwrap_the_program():
     from kaarme_tpu_torch.models import sort_counter
 

@@ -1,14 +1,16 @@
 """The plain reference against a string count, with both
-configurations' flags, and the judge's numbers on altered stores."""
+configurations' flags, counted whole and in key-hash parts, and the
+judge's numbers on altered stores, in one part and in four."""
 
 import collections
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
-from kbench import gen, judge
+from kbench import gen, judge, run
 from kbench.reference import kmer_count as ref
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,7 +67,8 @@ def test_count_file_with_the_configuration_flags(name):
     # the judge passes the reference in the program's place (with -b, its
     # count >= 2 set) ...
     stored = counts >= (2 if "-b" in cfg["flags"] else 1)
-    checks, _ = judge.judge(k, cfg["flags"], keys, counts, keys[stored], counts[stored], text, 0)
+    checks, _ = judge.judge(k, cfg["flags"], [(keys, counts, keys[stored], counts[stored])],
+                            text, 0)
     assert judge.ok(checks)
     # ... and with -b, the count >= 2 set plus a few admitted singletons,
     # but not with every singleton kept (no filter at all)
@@ -74,11 +77,11 @@ def test_count_file_with_the_configuration_flags(name):
         assert single.numel() > 1000
         keep = counts >= 2
         keep[single[::200]] = True
-        checks, info = judge.judge(k, cfg["flags"], keys, counts, keys[keep], counts[keep],
+        checks, info = judge.judge(k, cfg["flags"], [(keys, counts, keys[keep], counts[keep])],
                                    text, 0)
         assert judge.ok(checks) and info["reference_singletons"] == single.numel()
         assert 0 < checks["bloom_singletons_kept"]["value"] <= single.numel() // 100
-        checks, _ = judge.judge(k, cfg["flags"], keys, counts, keys, counts, text, 0)
+        checks, _ = judge.judge(k, cfg["flags"], [(keys, counts, keys, counts)], text, 0)
         assert not judge.ok(checks)
         assert [n for n, d in checks.items() if d["value"] > d["limit"]] == ["bloom_singletons_kept"]
 
@@ -142,3 +145,94 @@ def test_file_lines_off():
     assert off(b"A 2\nC 3\n", b"A 2\nC 3") == 2   # no newline: another line
     assert off(b"A 2\nA 2\n", b"A 2\n") == 1
     assert off(b"", b"G 9\n") == 1
+
+
+MASK = (1 << 64) - 1
+
+
+def splitmix64_final(z):
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & MASK
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & MASK
+    return z ^ (z >> 31)
+
+
+def test_part_of_is_the_splitmix64_finaliser_of_the_key_words():
+    g = torch.Generator().manual_seed(7)
+    keys = torch.randint(-(2**63), 2**63 - 1, (500, 3), generator=g, dtype=torch.int64)
+    for parts in (1, 3, 4):
+        want = []
+        for row in keys.tolist():
+            h = 0
+            for w in row:
+                h = splitmix64_final(h ^ (w & MASK))
+            want.append(h % parts)
+        assert ref.part_of(keys, parts).tolist() == want
+
+
+def messy_fasta(seed=11):
+    """Reads, then a record wrapped over many lines with N bases and lower
+    case, a record on one line longer than a block, and a last line with
+    no newline."""
+    rng = np.random.default_rng(seed)
+    reads = gen.fasta_bytes(small(0.01, seed))
+    seq = gen.ACGT[rng.integers(0, 4, 3000)].tobytes()
+    seq = seq[:700] + b"NN" + seq[702:1500] + seq[1500:1600].lower() + seq[1600:]
+    wrapped = b"\n".join(seq[i:i + 60] for i in range(0, len(seq), 60))
+    long_line = gen.ACGT[rng.integers(0, 4, 2500)].tobytes()
+    return (reads + b">wrapped record\n" + wrapped + b"\n>long\n" + long_line
+            + b"\n>last\nACGTTGCANNACGTAC")
+
+
+@pytest.mark.parametrize("k", [13, 51])
+def test_the_parts_hold_the_whole_count(tmp_path, k):
+    fa = messy_fasta()
+    path = tmp_path / "m.fa"
+    path.write_bytes(fa)
+    codes = ref.codes_from_fasta(torch.frombuffer(bytearray(fa), dtype=torch.uint8))
+    want_keys, want_counts = ref.count_codes(codes, k)
+    # blocks of 1000 bytes: the wrapped record spans several, the long line is one
+    blocks = list(ref.line_blocks(np.frombuffer(fa, np.uint8), 1000))
+    assert blocks[0][0] == 0 and blocks[-1][1] == len(fa) and len(blocks) > 30
+    assert all(b0 == a1 for (_, b0), (a1, _) in zip(blocks, blocks[1:]))
+    assert max(b - a for a, b in blocks) > 2500
+    one = ref.count_part(str(path), k, "cpu", block=1000)
+    assert torch.equal(one[0], want_keys) and torch.equal(one[1], want_counts)
+    parts = [ref.count_part(str(path), k, "cpu", p, 4, block=1000) for p in range(4)]
+    for p, (keys, counts) in enumerate(parts):
+        assert keys.shape[0] > 0 and (ref.part_of(keys, 4) == p).all()
+        assert torch.equal(ref.lexsort(keys), torch.arange(keys.shape[0]))
+    keys, counts = (torch.cat(c) for c in zip(*parts))
+    order = ref.lexsort(keys)
+    assert torch.equal(keys[order], want_keys) and torch.equal(counts[order], want_counts)
+
+
+@pytest.mark.parametrize("name", ["ecoli-k51", "ecoli-k51-bf"])
+def test_the_judge_reads_alike_in_one_and_four_parts(tmp_path, name):
+    cfg = config(name)
+    k, flags = cfg["k"], cfg["flags"]
+    path = tmp_path / "r.fa"
+    path.write_bytes(gen.fasta_bytes(small(0.01)))
+    keys, counts = ref.count_part(str(path), k, "cpu")
+    text = ref.render(keys, counts, k=k, mode=2, min_abundance=2).numpy().tobytes()
+    stored = counts >= (2 if "-b" in flags else 1)
+    stored[torch.nonzero(counts == 1).flatten()[::300]] = True
+    sk, sc = keys[stored], counts[stored].clone()
+    sc[5] += 1
+    stores = {"sound": (keys[stored], counts[stored]), "a count off": (sk, sc),
+              "rows lost": (sk[::2], sc[::2]),
+              "a row twice": (torch.cat([sk, sk[7:8]]), torch.cat([sc, sc[7:8]])),
+              "every key": (keys, counts)}
+    texts = [text, text[:-40] + b"\n", text.replace(b" 2\n", b" 3\n", 1)]
+
+    def judged(store_keys, store_counts, got, parts):
+        cpu = [torch.device("cpu")] * parts
+        rows = [ref.count_part(str(path), k, "cpu", p, parts) for p in range(parts)]
+        store = run.joined(run.into_parts(store_keys, store_counts, cpu))
+        return judge.judge(k, flags, [(*r, *st) for r, st in zip(rows, store)], got, 0)
+
+    for what, (pk, pc) in stores.items():
+        for got in texts:
+            one = judged(pk, pc, got, 1)
+            assert judged(pk, pc, got, 4) == one, what
+            sound = what == "sound" or (what == "every key" and "-b" not in flags)
+            assert judge.ok(one[0]) == (sound and got == text), what

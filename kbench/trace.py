@@ -8,12 +8,17 @@ start and end on ``time.perf_counter_ns``).  The program is not edited.
 
 ``device_summary`` reads the device activity that ``torch.profiler``
 recorded over the window (CUDA activity only, so that the host runs as
-it does untraced; ``profiler_events``): the union of device activity
-(kernels, copies, memsets), the kernels' own time, the device
-operations that took most time, and the idle gaps named by the span the
-main thread was in.  Host and device clocks are tied by an anchor: the
-first device operation of the trace, one the harness launches at a
-known host time before the window, with the card idle.
+it does untraced; ``profiler_events``), card by card: each card's busy
+time is the union of its own kernels, copies and memsets, and its idle
+gaps are the window less that union, named by the span the main thread
+was in.  ``busy_s`` and each idle gap are the mean over the cards, so
+that one busy card beside three idle ones reads 75% idle; the kernels'
+own time and the device operations that took most time are summed over
+the cards.  Host and device clocks are tied by an anchor: the first
+device operation of the trace, one the harness launches on the first
+card at a known host time before the window, with every card idle; it
+launches one on each other card too, so that every card of the cell
+appears in the trace.
 """
 
 from __future__ import annotations
@@ -76,9 +81,11 @@ class Spans:
     def install(self):
         from kaarme_tpu_torch.io import reader
         from kaarme_tpu_torch.models import bloom_counter, counter, sort_counter
+        from kaarme_tpu_torch.parallel import sharded_sort
 
         self._wrap_method(sort_counter.SortKmerCounter, "count_file", "count_file")
         self._wrap_method(counter.KmerCounter, "count_file", "count_file")
+        self._wrap_method(sharded_sort.ShardedSortCounter, "count_file", "count_file")
         self._wrap_method(bloom_counter._TwoPassBloom, "count_file_two_pass",
                           "count_file_two_pass")
         self._wrap_method(sort_counter.CountOutput, "write_output", "write_output")
@@ -125,65 +132,76 @@ def _union(iv: np.ndarray) -> np.ndarray:
 
 
 def profiler_events(prof) -> list:
-    """(category, name, start us, end us) of each device operation a
-    stopped ``torch.profiler.profile`` recorded, read in memory.  The
-    card's torch gives events no activity type: copies and memsets are
-    told by their names."""
+    """(category, name, start us, end us, card index) of each device
+    operation a stopped ``torch.profiler.profile`` recorded, read in
+    memory.  The card's torch gives events no activity type: copies and
+    memsets are told by their names."""
     out = []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
         cat = {"Memcpy": "gpu_memcpy", "Memset": "gpu_memset"}.get(e.name()[:6], "kernel")
         s = e.start_ns() / 1e3
-        out.append((cat, e.name(), s, s + e.duration_ns() / 1e3))
+        out.append((cat, e.name(), s, s + e.duration_ns() / 1e3, e.device_index()))
     return out
 
 
 def device_summary(events, spans: Spans, anchor_ns: int, w0_ns: int, w1_ns: int):
     """What the device ``events`` say of the window [w0_ns, w1_ns]
-    (perf_counter_ns; the first event is the anchor, launched at
-    ``anchor_ns``): busy_s, window_s, kernel_s, device_ops and idle_gaps
-    (each at most 10 [name, seconds], largest first); None without
-    events."""
+    (perf_counter_ns), as ``profiler_events`` gives them (an event
+    without a card index is on card 0).  The cards are those the events
+    name; the first event of the lowest is the anchor, launched at
+    ``anchor_ns``.  Returns busy_s (the mean over the cards),
+    busy_s_per_card, window_s, kernel_s and device_ops (summed over the
+    cards) and idle_gaps (the mean over the cards); device_ops and
+    idle_gaps each at most 10 [name, seconds], largest first.  None
+    without events."""
     if not events:
         return None
-    a_us = min(e[2] for e in events)
+    card = [e[4] if len(e) > 4 else 0 for e in events]
+    cards = sorted(set(card))
+    a_us = min(e[2] for e, c in zip(events, card) if c == cards[0])
 
     def us(t_ns):
         return a_us + (t_ns - anchor_ns) / 1e3
 
     w0, w1 = us(w0_ns), us(w1_ns)
-    iv = np.array([(max(s, w0), min(t, w1)) for _, _, s, t in events if t > w0 and s < w1],
-                  dtype=np.float64).reshape(-1, 2)
-    busy = _union(iv)
     by_name = {}
     kernel_us = 0.0
-    for cat, name, s, t in events:
+    for cat, name, s, t, *_ in events:
         d = min(t, w1) - max(s, w0)
         if d <= 0:
             continue
         by_name[name[:NAME_CHARS]] = by_name.get(name[:NAME_CHARS], 0.0) + d
         if cat == "kernel":
             kernel_us += d
-    # idle gaps: the window minus the busy union, named by the main span
-    edges = np.concatenate([[w0], busy.reshape(-1), [w1]]).reshape(-1, 2)
-    gaps = edges[edges[:, 1] > edges[:, 0]]
     segs = [(us(a), us(b), n) for a, b, n in _segments(spans.records, spans.main)]
-    idle, j = {}, 0
-    for g0, g1 in gaps:            # gaps and segments are both sorted and disjoint
-        while j < len(segs) and segs[j][1] <= g0:
-            j += 1
-        covered, i = 0.0, j
-        while i < len(segs) and segs[i][0] < g1:
-            d = min(g1, segs[i][1]) - max(g0, segs[i][0])
-            idle[segs[i][2]] = idle.get(segs[i][2], 0.0) + d
-            covered += d
-            i += 1
-        if g1 - g0 > covered:
-            idle["harness"] = idle.get("harness", 0.0) + (g1 - g0 - covered)
+    busy_s, idle = [], {}
+    for c in cards:
+        iv = np.array([(max(e[2], w0), min(e[3], w1)) for e, ec in zip(events, card)
+                       if ec == c and e[3] > w0 and e[2] < w1],
+                      dtype=np.float64).reshape(-1, 2)
+        busy = _union(iv)
+        busy_s.append(float((busy[:, 1] - busy[:, 0]).sum()) / 1e6 if busy.size else 0.0)
+        # idle gaps: the window minus the card's busy union, named by the main span
+        edges = np.concatenate([[w0], busy.reshape(-1), [w1]]).reshape(-1, 2)
+        gaps = edges[edges[:, 1] > edges[:, 0]]
+        j = 0
+        for g0, g1 in gaps:        # gaps and segments are both sorted and disjoint
+            while j < len(segs) and segs[j][1] <= g0:
+                j += 1
+            covered, i = 0.0, j
+            while i < len(segs) and segs[i][0] < g1:
+                d = min(g1, segs[i][1]) - max(g0, segs[i][0])
+                idle[segs[i][2]] = idle.get(segs[i][2], 0.0) + d
+                covered += d
+                i += 1
+            if g1 - g0 > covered:
+                idle["harness"] = idle.get("harness", 0.0) + (g1 - g0 - covered)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     gtop = sorted(idle.items(), key=lambda kv: -kv[1])[:10]
-    return dict(busy_s=float((busy[:, 1] - busy[:, 0]).sum()) / 1e6 if busy.size else 0.0,
+    n = len(cards)
+    return dict(busy_s=sum(busy_s) / n, busy_s_per_card=busy_s,
                 window_s=(w1 - w0) / 1e6, kernel_s=kernel_us / 1e6,
-                device_ops=[[n, v / 1e6] for n, v in top],
-                idle_gaps=[[n, v / 1e6] for n, v in gtop])
+                device_ops=[[name, v / 1e6] for name, v in top],
+                idle_gaps=[[name, v / 1e6 / n] for name, v in gtop])
