@@ -121,6 +121,15 @@ def next_store_size(x: int, coarse: bool = False) -> int:
 # Multi-word lexicographic sort
 # ---------------------------------------------------------------------------
 
+def sort_key(cols) -> torch.Tensor:
+    """One or two int32 bit-pattern columns as one int64 key whose signed
+    order is their unsigned order, (hi, lo) lexicographic for two: (hi -
+    2^31) * 2^32 + lo, or the one column's unsigned value."""
+    if len(cols) == 2:
+        return (u32(cols[0]) - (1 << 31)) * (1 << 32) + u32(cols[1])
+    return u32(cols[0])
+
+
 def lexsort(cols, num_keys: int) -> torch.Tensor:
     """Sort rows by the first ``num_keys`` int32 bit-pattern columns
     (most significant first, unsigned order); the remaining columns ride
@@ -128,19 +137,15 @@ def lexsort(cols, num_keys: int) -> torch.Tensor:
     int32 tensor.
 
     The counterpart of ``lax.sort(cols, num_keys=...)``: column pairs
-    pack into one int64 key ((hi - 2^31) * 2^32 + lo, whose signed order
-    is the unsigned (hi, lo) order), and stable ``torch.sort`` passes run
-    least-significant pair first, composing one permutation.  Rows with
-    equal keys keep their input order."""
+    pack into one int64 key (``sort_key``), and stable ``torch.sort``
+    passes run least-significant pair first, composing one permutation.
+    Rows with equal keys keep their input order."""
     perm = None
     j = num_keys
     while j > 0:
         i = max(j - 2, 0)
         part = [c if perm is None else c[perm] for c in cols[i:j]]
-        if len(part) == 2:
-            key = (u32(part[0]) - (1 << 31)) * (1 << 32) + u32(part[1])
-        else:
-            key = u32(part[0])
+        key = sort_key(part)
         order = torch.sort(key, stable=True).indices
         perm = order if perm is None else perm[order]
         j = i

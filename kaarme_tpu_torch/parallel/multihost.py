@@ -489,7 +489,7 @@ class MultiHostSortCounter(ShardedSortCounter):
 
     def dump_local(self):
         """This host's hash partition of the distinct set (``dump``: keys
-        (N, W) uint32 sorted, counts (N,) int64, sorted on the first local
+        (N, W) uint32 sorted, counts (N,) int64, from one key range a local
         device).  Partitions are disjoint across hosts."""
         return self.dump()
 

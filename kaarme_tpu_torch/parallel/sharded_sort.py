@@ -18,6 +18,12 @@ key (the top hash bits, ``exchange.owner_by_hash``) and compacts every
 shard's received records (lexsort + K2 full_sum; the clamped sum keeps
 c mod 2^20 and c >= 2^20, which both output contracts read).  Shard d
 then holds the sorted distinct records that it owns.
+
+The dump (``dump_columns``, read by the writer, ``dump`` and ``find``)
+is in key ranges, one a device: split keys sampled from one shard's
+sorted store cut every shard's store into ndev slices, and device r
+merges every shard's slice of range r, so no device holds more than its
+share of the distinct set.
 """
 
 from __future__ import annotations
@@ -295,18 +301,67 @@ class ShardedSortCounter(SortedOutput):
         return [rows_to_host([store_part(p, nd)]) for p, nd in zip(self.prefix, self._nd)]
 
     def dump_columns(self):
-        """All distinct k-mers across shards as one dump part, before
-        filtering and clipping: the shards' records gathered on the first
-        device and sorted there (a host lexsort of millions of multi-word
-        rows costs seconds, PERF.md), then written from there."""
+        """All distinct k-mers across shards in key order, before
+        filtering and clipping, as one dump part a shard: part r is the
+        r-th of ndev key ranges, on ``devices[r]`` (``_key_ranges``).
+        Each shard's slice of range r is copied to device r and the
+        slices merge there (``lexsort``); every device's copies and merge
+        are queued before the one synchronise a device that ends the
+        ``range_dump`` span.  ``dump_rows_moved`` counts the rows copied
+        off the shard that held them."""
         self.finalize_exchange()
         w = codec.words_per_kmer(self.cfg.k)
-        dev = self.devices[0]
-        cols = [torch.cat([p[i][:nd].to(dev) for p, nd in zip(self.prefix, self._nd)])
-                for i in range(w + 1)]
+        with trace.span("range_dump", self.stats):
+            bounds = self._key_ranges(w)
+            parts, moved = [], 0
+            for r, dev in enumerate(self.devices):
+                slices = [tuple(c[b[r]:b[r + 1]] for c in p)
+                          for p, b in zip(self.prefix, bounds)]
+                moved += sum(b[r + 1] - b[r] for s, b in enumerate(bounds) if s != r)
+                rows = self._merge_range(slices, dev, w)
+                parts.append((tuple(rows[:w].unbind(0)), rows[w]))
+            trace.count("dump_rows_moved", moved, self.stats)
+            for dev in dict.fromkeys(self.devices):
+                if dev.type == "cuda":
+                    trace.count("host_syncs", stats=self.stats)
+                    torch.cuda.synchronize(dev)
+        return parts
+
+    def _key_ranges(self, w: int) -> list:
+        """Per shard, the ndev + 1 row bounds of its sorted store's slices
+        of the key ranges.  Owners are hash-routed, so the largest
+        shard's store samples the whole key space: its leading 64-bit
+        keys (``sortcount.sort_key`` of the first two words) at ranks
+        N r / ndev are the ndev - 1 splits, and range r holds the keys
+        whose leading key lies in [split r - 1, split r).  Rows with one
+        leading key fall in one range, so ranges are disjoint whatever
+        the balance."""
+        ndev = self.ndev
+        lead = []
+        for p, nd, dev in zip(self.prefix, self._nd, self.devices):
+            with on_device(dev):
+                lead.append(sortcount.sort_key([c[:nd] for c in p[:min(w, 2)]]))
+        big = max(range(ndev), key=self._nd.__getitem__)
+        n = self._nd[big]
+        ranks = torch.tensor([n * r // ndev for r in range(1, ndev)], dtype=torch.int64,
+                             device=self.devices[big])
+        splits = lead[big][ranks] if n else lead[big].new_zeros(ndev - 1)
+        bounds = []
+        for ld, nd, dev in zip(lead, self._nd, self.devices):
+            with on_device(dev):
+                cut = torch.searchsorted(ld, splits.to(dev))
+            trace.count("host_syncs", stats=self.stats)
+            bounds.append([0, *cut.tolist(), nd])
+        return bounds
+
+    @staticmethod
+    def _merge_range(slices, dev, w: int) -> torch.Tensor:
+        """Sorted, key-disjoint store slices copied to ``dev`` and merged
+        there: the (W + 1, N) rows of ``lexsort``."""
         with on_device(dev):
-            rows = sortcount.lexsort(cols, num_keys=w)
-        return [(tuple(rows[:w].unbind(0)), rows[w])]
+            cols = [torch.cat([s[i].to(dev, non_blocking=True) for s in slices])
+                    for i in range(w + 1)]
+            return sortcount.lexsort(cols, num_keys=w)
 
     def occupancy(self):
         """(live records over all shards, ndev x per-shard capacity)."""

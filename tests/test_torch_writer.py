@@ -216,8 +216,9 @@ def _counter(name):
                                   "sharded_skm", "sharded_table"])
 def test_write_output_formats_the_dump_parts(tmp_path, monkeypatch, name):
     """Every counter's ``write_output`` hands ``write_lines`` its
-    ``dump_columns()`` (one part; the sharded table one per shard, in
-    shard order) and writes what the JAX writer makes of its ``dump()``."""
+    ``dump_columns()`` (one part; the sharded counters one per shard, in
+    shard order: the table's own records, the sort and skm counters' key
+    ranges) and writes what the JAX writer makes of its ``dump()``."""
     rng = np.random.default_rng(3)
     codes = rng.integers(0, 4, 6000).astype(np.uint8)
     codes[::151] = 4
@@ -229,7 +230,7 @@ def test_write_output_formats_the_dump_parts(tmp_path, monkeypatch, name):
                         lambda path, parts, **kw: seen.append(parts) or real(path, parts, **kw))
     out = tmp_path / "port.txt"
     n = counter.write_output(str(out))
-    assert len(seen) == 1 and len(seen[0]) == (2 if name == "sharded_table" else 1)
+    assert len(seen) == 1 and len(seen[0]) == (2 if name.startswith("sharded") else 1)
     keys, counts = counter.dump()
     cfg = counter.cfg
     want = _ref_bytes(tmp_path, cfg.k, cfg.mode, cfg.min_abundance, keys, counts)
