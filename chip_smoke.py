@@ -155,7 +155,17 @@ Run from the repository root.  It builds the port's CUDA kernels from
    column, at the finalize's chunk (2^20 runs, k=51: 16.8 M rows), at
    k=201 (W = 13), and on tails of no whole block at k=300 (W = 19) and
    k=16; the 2^20-run cases timed beside the plain chain and the bound,
-   one launch a call.
+   one launch a call;
+14. P1 (``kaarme_tpu_torch/ops/cuda_parse.py``: FASTA and plain text
+   parsed and packed on the card) through the device code stream
+   (``io/rawstream.py``) on a 147 MB FASTA of 150 bp reads in 8 MiB
+   blocks at the full-size superstep (2^26 windows, k=51): every chunk
+   == the host's ``encode_fasta`` + ``pack_stream`` of the same codes;
+   the same FASTA with CRLF line ends and wrapped lines in 4 KiB blocks
+   == the plain version; one 8 MiB block timed (the call, and the
+   card's time queued behind a sleep kernel) beside the plain version
+   and the host's encode + pack, with its bound (the raw bytes read once,
+   the words and bitmap written once).
 
 Each kernel phase also computes the kernel's bound at its shape: the
 least time the card could take, each input byte read once and each
@@ -167,8 +177,8 @@ each kernel's bound, its share and ``library_ms``: null, as no single
 PyTorch call computes any of these functions; T1, which is not a TPU
 kernel but replaces the JAX package's XLA probe rounds, W1, which
 replaces its host numpy writer, and B1 and B2, which replace its XLA
-Bloom filter ops, and E1, which replaces its fused jnp expansion, have
-their entries too), the card's
+Bloom filter ops, E1, which replaces its fused jnp expansion, and P1,
+which replaces its host encode and pack, have their entries too), the card's
 name and power limit, and {"ok": true, "device": {...}}.  Exits
 non-zero without a CUDA device, and where the port has imported jax or
 kaarme_tpu.
@@ -1378,7 +1388,7 @@ def phase_small(tmp):
 
 def launch_counters():
     from kaarme_tpu_torch.ops import (cuda_bloom, cuda_compact, cuda_expand, cuda_merge,
-                                      cuda_skm, cuda_table, cuda_winkeys, writer)
+                                      cuda_parse, cuda_skm, cuda_table, cuda_winkeys, writer)
 
     return {"skm_dense": cuda_skm.run_rows_dense,
             "segsum_compact": cuda_compact.segsum_compact,
@@ -1389,7 +1399,8 @@ def launch_counters():
             "format_lines": writer.format_lines,
             "bloom_insert": cuda_bloom.bloom_insert,
             "bloom_gate": cuda_bloom.bloom_gate,
-            "expand_runs": cuda_expand.expand_runs}
+            "expand_runs": cuda_expand.expand_runs,
+            "parse_pack": cuda_parse.parse_pack}
 
 
 @contextlib.contextmanager
@@ -1629,7 +1640,8 @@ def phase_full(tmp):
     # the skm route (k >= 16 under auto)
     argv = [path, str(K), "-s", "8000000", "-a", "1", "-q"]
     counter, skm_launches = run_full(argv + ["-o", out("skm")], f"k={K} skm",
-                                     ("skm_dense", "segsum_compact", "expand_runs"))
+                                     ("skm_dense", "segsum_compact", "expand_runs",
+                                      "parse_pack"))
     _, cnt = counter.dump()
     windows = n_reads * (150 - K + 1)
     if int(cnt.sum()) != windows:
@@ -2324,6 +2336,116 @@ def phase_e1(dev):
     return out
 
 
+def reads_fasta_bytes(n_reads: int, genome_len: int = 4_600_000, read_len: int = 150,
+                      seed: int = SEED, crlf_wrap: int = 0) -> bytes:
+    """FASTA of ``n_reads`` reads of a random genome as the benchmark lays
+    them out (``>r`` and the index, the bases on one line); with
+    ``crlf_wrap`` the bases wrap every that many and lines end in CRLF."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len).astype(np.uint8)
+    starts = rng.integers(0, genome_len - read_len, n_reads)
+    seq = np.frombuffer(b"ACGT", np.uint8)[genome[starts[:, None] + np.arange(read_len)]]
+    if not crlf_wrap:
+        return b"".join(b">r%d\n%s\n" % (i, seq[i].tobytes()) for i in range(n_reads))
+    out = []
+    for i in range(n_reads):
+        r = seq[i].tobytes()
+        out.append(b">r%d\r\n" % i + b"".join(r[j:j + crlf_wrap] + b"\r\n"
+                                              for j in range(0, read_len, crlf_wrap)))
+    return b"".join(out)
+
+
+def p1_stream(dev, data: bytes, block: int, kernels: str, k: int = K, sb: int = N_WINDOWS):
+    """The device code stream's chunks of ``data`` fed in ``block``-byte blocks."""
+    import torch
+    from kaarme_tpu_torch.io import rawstream
+
+    st = rawstream.CodeStream(dev, k, sb, kernels)
+    got = []
+    for pos in range(0, len(data), block):
+        got += st.feed(torch.frombuffer(bytearray(data[pos:pos + block]), dtype=torch.uint8)
+                       .pin_memory(), True)
+    return got + st.close()
+
+
+def phase_p1(dev):
+    """Phase 14: P1 through the device code stream against the host's
+    encode + pack (147 MB, 8 MiB blocks) and against its plain version
+    (CRLF, wrapped lines, 4 KiB blocks); one 8 MiB block timed with its
+    bound."""
+    import numpy as np
+    import torch
+    from kaarme_tpu_torch.io import fastio
+    from kaarme_tpu_torch.ops import cuda_parse
+
+    data = reads_fasta_bytes(920_000)
+    codes = fastio.encode_fasta(data)[0]
+    cuda_parse.parse_pack.launches = 0
+    got = p1_stream(dev, data, 8 << 20, "cuda")
+    torch.cuda.synchronize()
+    launches = cuda_parse.parse_pack.launches
+    if launches != -(-len(data) // (8 << 20)):
+        raise AssertionError(f"P1: {launches} launches for {len(data)} bytes")
+    for s, (words, bits, n) in enumerate(got):
+        pw, pm = fastio.pack_stream(codes[s * N_WINDOWS: s * N_WINDOWS + n + K - 1])
+        if not (np.array_equal(words.cpu().numpy().view(np.uint32), pw)
+                and np.array_equal(bits.cpu().numpy().view(np.uint32), pm)):
+            raise AssertionError(f"P1: superstep {s} != the host's encode + pack")
+    full = (codes.shape[0] - K + 1) // N_WINDOWS
+    if len(got) != full + (codes.shape[0] - full * N_WINDOWS >= K):
+        raise AssertionError(f"P1: {len(got)} supersteps for {codes.shape[0]} codes")
+    print(f"P1 parse_pack: {len(data)} bytes in {launches} blocks -> {codes.shape[0]} codes, "
+          f"{len(got)} supersteps == host encode + pack")
+    del got
+    small = reads_fasta_bytes(20_000, crlf_wrap=70)
+    a = p1_stream(dev, small, 4096, "cuda", sb=1 << 16)
+    b = p1_stream(dev, small, 4096, "plain", sb=1 << 16)
+    torch.cuda.synchronize()
+    if len(a) != len(b) or any(x[2] != y[2] or max_abs_err(x[:2], y[:2]) for x, y in zip(a, b)):
+        raise AssertionError("P1: CRLF, wrapped lines, 4 KiB blocks: kernel != plain")
+    print(f"P1 parse_pack: CRLF + wrapped lines, {len(small)} bytes in 4 KiB blocks == plain")
+
+    # one 8 MiB block into a fresh stream: words and bitmap of superstep 0
+    blk = data[:8 << 20]
+    raw = torch.frombuffer(bytearray(blk), dtype=torch.uint8).to(dev)
+    span = N_WINDOWS + K - 1
+
+    def prepare():
+        chunks = [(torch.zeros(-(-span // 16), dtype=torch.int32, device=dev),
+                   torch.zeros(-(-span // 32), dtype=torch.int32, device=dev))]
+        return (cuda_parse.ParseState(dev), chunks)
+
+    def run(state, chunks, kernels="cuda"):
+        cuda_parse.parse_pack(raw, fasta=True, state=state, chunks=chunks, base=0,
+                              sb=N_WINDOWS, span=span, kernels=kernels)
+
+    ms = cuda_ms_fresh(prepare, run)
+    dev_ms = cuda_ms_queued(prepare, run)
+    plain_ms = cuda_ms_fresh(prepare, lambda st, ch: run(st, ch, "plain"), reps=3)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        host = fastio.pack_stream(fastio.encode_fasta(blk)[0])
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    st, ch = prepare()
+    run(st, ch)
+    n = int(st.buf[2])
+    words, bits = ch[0][0][:-(-n // 16)], ch[0][1][:-(-n // 32)]
+    if not (np.array_equal(words.cpu().numpy().view(np.uint32), host[0])
+            and np.array_equal(bits.cpu().numpy().view(np.uint32), host[1])):
+        raise AssertionError("P1: the timed block != the host's encode + pack")
+    # bytes: the block read once, its codes' words and bitmap written once
+    # (no operation count sets it: a few dozen integer operations a byte)
+    b_ = bound([raw], [words, bits], 40.0 * len(blk))
+    print(f"P1 parse_pack: one {len(blk)}-byte block -> {n} codes: the call {ms:.3f} ms, "
+          f"card {dev_ms:.4f} ms, plain {plain_ms:.3f} ms, host encode + pack "
+          f"{host_ms:.3f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}), card share "
+          f"{b_['bound_ms'] / dev_ms:.3f}")
+    return dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, host_ms=host_ms, max_abs_err=0,
+                launches_per_job=launches, **b_)
+
+
 def main() -> int:
     try:
         import torch
@@ -2380,6 +2502,8 @@ def main() -> int:
     b1, b2 = phase_bloom(dev)
     torch.cuda.empty_cache()
     e1 = phase_e1(dev)
+    torch.cuda.empty_cache()
+    p1 = phase_p1(dev)
     leaked = [m for m in sys.modules if m in ("jax", "kaarme_tpu") or m.startswith("kaarme_tpu.")]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
@@ -2417,6 +2541,9 @@ def main() -> int:
         dict(name="expand_runs", route="cuda", source="kaarme_tpu_torch/csrc/expand_runs.cu",
              replaces="kaarme_tpu/ops/skm.py:432", launches=launches["expand_runs"],
              **timed(e1)),
+        dict(name="parse_pack", route="cuda", source="kaarme_tpu_torch/csrc/parse_pack.cu",
+             replaces="kaarme_tpu/io/fastio.py:81 encode_fasta + :131 pack_stream (host)",
+             launches=launches["parse_pack"], **timed(p1)),
     ]}
     print(json.dumps(table))
     print(smi)

@@ -74,6 +74,7 @@ class CodeChunkReader:
                 if not buf:
                     break
                 with trace.span("encode"):
+                    trace.count("host_encoded_bytes", len(buf))
                     if self.fmt == "fasta":
                         codes, in_header = fastio.encode_fasta(buf, in_header)
                     elif self.fmt == "fastq":

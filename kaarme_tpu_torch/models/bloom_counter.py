@@ -221,11 +221,7 @@ class _TwoPassBloom:
                             prefetch: int = 4):
         """Both passes over a file (it is read twice)."""
         with trace.span("bloom_pass1", self.stats):
-            chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
-            if prefetch:
-                chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
-            for codes in chunks:
-                self.add_codes(codes)
+            self._stream_file(path, chunk_bytes, prefetch)
             self.start_pass2()
         return self.count_file(path, chunk_bytes=chunk_bytes, prefetch=prefetch)
 

@@ -2,14 +2,17 @@
 ``kaarme_tpu/models/sort_counter.py``: the classic pipeline (one sorted
 row per window) and the base of the super-k-mer counter.
 
-The host reads and encodes the input, packs each superstep's code span
-to 2 bits per base plus a separator list on a worker thread, and copies
-it to the device (pinned host memory, ``non_blocking``).  The device
-merges every superstep into a distinct store.  Dispatch is optimistic:
-superstep s+1 chains on s's unverified output and verification trails
-by up to ``_max_inflight`` supersteps; when a superstep overflowed the
-store's working size, the store grows and that superstep and every
-later one are replayed from their kept inputs.
+Each superstep ships as a transfer chunk: its code span packed to 2 bits
+per base plus its separators.  From FASTA and plain-text files the device
+makes the chunks itself: the raw bytes go to the card and P1 parses and
+packs them there (``count_file``, ``io/rawstream.py``).  Codes handed in
+(``add_codes``) and FASTQ files are packed on the host, on a worker
+thread, and copied to the device (pinned host memory, ``non_blocking``).
+The device merges every superstep into a distinct store.  Dispatch is
+optimistic: superstep s+1 chains on s's unverified output and
+verification trails by up to ``_max_inflight`` supersteps; when a
+superstep overflowed the store's working size, the store grows and that
+superstep and every later one are replayed from their kept inputs.
 
 The classic superstep (``_dispatch``) makes every window's canonical
 key (K3) and merges the keys into the store: one sort of prefix ++ keys
@@ -23,11 +26,12 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from ..io import codebuf, fastio
+from ..io import codebuf, fastio, rawstream
 from ..io import reader as io_reader
 from ..ops import sortcount, writer
 from ..utils import codec, trace
@@ -240,13 +244,43 @@ class SortKmerCounter(SortedOutput):
     def count_file(self, path: str, chunk_bytes: int = io_reader.DEFAULT_CHUNK_BYTES,
                    prefetch: int = 4):
         with trace.span("count", self.stats):
-            chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes)
+            self._stream_file(path, chunk_bytes, prefetch)
+            self.finish()
+        return self
+
+    def _stream_file(self, path: str, chunk_bytes: int, prefetch: int):
+        """One pass over a file into supersteps, ``finish`` left to the
+        caller.  FASTA and plain text go to the device as raw bytes, where
+        P1 parses and packs them (``io/rawstream.py``); FASTQ is encoded
+        and packed on the host."""
+        fmt, gzipped = io_reader.sniff_format(path)
+        if fmt == "fastq":
+            chunks = io_reader.CodeChunkReader(path, chunk_bytes=chunk_bytes, fmt=fmt,
+                                               gzipped=gzipped)
             if prefetch:
                 chunks = io_reader.PrefetchingReader(chunks, depth=prefetch)
             for codes in chunks:
                 self.add_codes(codes)
-            self.finish()
-        return self
+            return
+        # buffered codes (a restored checkpoint's tail) open the stream:
+        # whole supersteps of them on the host path, the rest on the device
+        self.add_codes(np.empty(0, np.uint8))
+        self._launch(final=True)
+        head = self._buf.take_all()
+        cfg = self.cfg
+        stream = rawstream.CodeStream(self.device, cfg.k, cfg.superstep_windows, cfg.kernels)
+        blocks = rawstream.RawBlockReader(path, gzipped, chunk_bytes, prefetch + 2,
+                                          pin=self.device.type == "cuda")
+        items = io_reader.PrefetchingReader(blocks, depth=prefetch) if prefetch else blocks
+        self._submit_all(stream.feed_codes(head))
+        for slot, n in items:
+            self._submit_all(stream.feed(blocks.block(slot, n), fmt == "fasta",
+                                         release=functools.partial(blocks.release, slot)))
+        self._submit_all(stream.close())
+
+    def _submit_all(self, chunks):
+        for words, bits, n in chunks:
+            self._submit(words, bits, n, True)
 
     # -- device steps ------------------------------------------------------
 
@@ -269,11 +303,15 @@ class SortKmerCounter(SortedOutput):
                 packed, sep, n, dense = self._prepped.pop(0).result()
             with trace.span("to_device", self.stats):
                 packed_d, sep_d = to_device(packed, self.device), to_device(sep, self.device)
-            self._drain(keep=self._max_inflight)
-            with trace.span("dispatch", self.stats):
-                self._dispatch(packed_d, sep_d, n, dense)
-            trace.count("batches", stats=self.stats)
-            self.stats["windows_processed"] += n
+            self._submit(packed_d, sep_d, n, dense)
+
+    def _submit(self, packed_d, sep_d, n: int, dense: bool):
+        """Dispatch one superstep's transfer chunk, on the device."""
+        self._drain(keep=self._max_inflight)
+        with trace.span("dispatch", self.stats):
+            self._dispatch(packed_d, sep_d, n, dense)
+        trace.count("batches", stats=self.stats)
+        self.stats["windows_processed"] += n
 
     def _eff_for_dispatch(self, n: int) -> int:
         """Store working size for the next superstep (the reference's

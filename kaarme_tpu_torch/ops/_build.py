@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels (K1-K5, T1, W1, B1, B2, E1) at first use.
+"""Build and load the package's CUDA kernels (K1-K5, T1, W1, B1, B2, E1, P1) at first use.
 
 ``nvcc`` compiles every ``csrc/*.cu`` file into an object, one process
 per file, all started together, and links them into ONE shared library
@@ -128,6 +128,10 @@ def _bind(lib):
     lib.kt_bloom_gate.restype = _I32
     lib.kt_expand_runs.argtypes = [_P, _I64, _I64, _I32, _I64, _P, _I64, _P]
     lib.kt_expand_runs.restype = _I32
+    lib.kt_parse_pack.argtypes = [_P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P]
+    lib.kt_parse_pack.restype = _I32
+    lib.kt_parse_pack_scratch.argtypes = [_I64]
+    lib.kt_parse_pack_scratch.restype = _I64
     return lib
 
 

@@ -6,7 +6,11 @@
   given ``stats`` also makes that dict the running job's for its
   extent, so the spans and counters under it, on any thread, add to
   the same dict; pass ``stats`` only on the thread that drives the job.
-- ``count(name, n=1, stats=None)`` adds ``n`` to the same totals.
+- ``count(name, n=1, stats=None)`` adds ``n`` to the same totals.  Two
+  of the counters say which input path ran: ``device_parsed_bytes``, the
+  raw bytes P1 parsed on the device (``ops/cuda_parse.py``), and
+  ``host_encoded_bytes``, the bytes the host's encoders took
+  (``io/reader.CodeChunkReader``).
 
 Recording is off by default: then only the totals are kept.  With
 ``record(True)`` (the CLI's ``--trace-out PATH``) every span also

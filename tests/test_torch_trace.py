@@ -63,6 +63,14 @@ def _fasta(path, reads):
     return str(path)
 
 
+def _fastq(path, reads):
+    with open(path, "wb") as f:
+        for i, r in enumerate(reads):
+            f.write(b"@r%d\n" % i + np.frombuffer(b"ACGT", np.uint8)[r].tobytes()
+                    + b"\n+\n" + b"I" * len(r) + b"\n")
+    return str(path)
+
+
 def _codes(reads):
     return np.concatenate([np.append(r, 4).astype(np.uint8) for r in reads])
 
@@ -157,10 +165,14 @@ def test_stats_totals_equal_the_span_sums(tmp_path, rec, route):
     for key, v in got.items():
         if key != "kernel_build_seconds":
             assert c.stats[key] == pytest.approx(v, rel=1e-9, abs=1e-9), key
-    want = {"count", "write", "reader_wait", "read", "encode", "pack", "to_device", "dispatch",
-            "drain", "format", "file_write"}
+    want = {"count", "write", "reader_wait", "read", "to_device", "dispatch", "drain", "format",
+            "file_write"}
+    if route.startswith("table"):
+        want |= {"encode", "pack"}                  # the host path
+    else:
+        want |= {"parse", "pack_wait"}              # FASTA parsed and packed on the device (P1)
     if route.startswith("skm"):
-        want |= {"finalize", "expand", "pack_wait"}
+        want |= {"finalize", "expand"}
     if route.endswith("bloom"):
         want.add("bloom_pass1")
     assert want <= {r[0] for r in trace.records()}
@@ -176,17 +188,19 @@ def test_recording_off_keeps_no_records_and_the_same_totals(tmp_path):
     c = SkmCounter(_small_skm()).count_file(path)
     c.write_output(str(tmp_path / "out.txt"))
     assert trace.records() == [] and trace.counter_records() == []
-    for key in ("build_seconds", "reader_wait_seconds", "pack_seconds", "pack_wait_seconds",
+    for key in ("build_seconds", "reader_wait_seconds", "parse_seconds", "pack_wait_seconds",
                 "to_device_seconds", "dispatch_seconds", "drain_seconds", "write_seconds",
                 "finalize_seconds", "format_seconds", "file_write_seconds", "read_seconds",
-                "encode_seconds"):
+                "device_parsed_bytes"):
         assert c.stats[key] > 0, key
     assert c.stats["write_seconds"] >= c.stats["finalize_seconds"] + c.stats["format_seconds"]
     assert c.stats["host_syncs"] >= 2 and c.stats["finalize_chunks"] == 1
 
 
 def test_reader_and_pack_spans_run_on_their_own_threads(tmp_path, rec):
-    path = _fasta(tmp_path / "r.fa", _reads(n_reads=1500))
+    """The host path (FASTQ): the reader thread reads and encodes, the pack
+    worker packs."""
+    path = _fastq(tmp_path / "r.fq", _reads(n_reads=1500))
     main = threading.get_ident()
     SkmCounter(_small_skm()).count_file(path, chunk_bytes=1 << 13)
     threads = {}
@@ -202,6 +216,26 @@ def test_reader_and_pack_spans_run_on_their_own_threads(tmp_path, rec):
     assert n_chunks > 4
     # the main thread's wait covers every chunk and the end of the stream
     assert sum(1 for r in trace.records() if r[0] == "reader_wait") == n_chunks + 1
+
+
+def test_device_path_reads_on_the_reader_thread_and_parses_on_the_main_one(tmp_path, rec):
+    """FASTA: the reader thread reads raw blocks; the main thread copies,
+    launches P1 and waits for the chunks, one reader_wait a block and one
+    at the end of the file."""
+    path = _fasta(tmp_path / "r.fa", _reads(n_reads=1500))
+    main = threading.get_ident()
+    c = SkmCounter(_small_skm()).count_file(path, chunk_bytes=1 << 13)
+    threads = {}
+    for name, tid, *_ in trace.records():
+        threads.setdefault(name, set()).add(tid)
+    assert "encode" not in threads and "pack" not in threads
+    assert len(threads["read"]) == 1 and threads["read"] != {main}
+    for name in MAIN_SPANS | {"parse"}:
+        assert threads[name] == {main}, name
+    n_blocks = sum(1 for r in trace.records() if r[0] == "read") - 1     # the last read is empty
+    assert n_blocks == -(-os.path.getsize(path) // (1 << 13)) > 4
+    assert sum(1 for r in trace.records() if r[0] == "reader_wait") == n_blocks + 1
+    assert c.stats["device_parsed_bytes"] == os.path.getsize(path)
 
 
 def test_count_spans_the_whole_count_file_and_pass1_its_extent(tmp_path, rec):
@@ -347,7 +381,7 @@ def test_cli_trace_out_writes_a_chrome_trace_with_the_stats_totals(tmp_path, ext
     assert rc == 0 and not trace.recording() and os.path.getsize(tmp_path / "c.txt") > 0
     obj = json.loads(out.read_text())
     names, per_track = _check_chrome(obj)
-    assert len(per_track) >= 3 and len(names) == len(per_track)   # main, reader, pack worker
+    assert len(per_track) >= 2 and len(names) == len(per_track)   # main, reader
     tot = {}
     for e in obj["traceEvents"]:
         if e["ph"] == "X":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of two checkouts on one card, in turns, on chip_smoke's inputs.
 
-    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|bloom|table|w1|bloom_e2e|e1 OTHER_ROOT \
+    python3 time_kernels.py --kernel k1|k2|k3|k4|k5|t1|bloom|table|w1|bloom_e2e|e1|p1 OTHER_ROOT \
         [--reps 5]
 
 Run from the repository root.  Times a kernel of this checkout and of the
@@ -87,7 +87,17 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
   sum over the call's kernels, copies and memsets), ``launches`` the
   device operations of a call and ``ops`` the aten ops it dispatches;
   ``bound_ms`` is the bytes once (the rows written, the runs read) at
-  3.35 TB/s.
+  3.35 TB/s;
+- p1: one 8 MiB block of FASTA (``chip_smoke.reads_fasta_bytes``: 150 bp
+  reads, the benchmark's layout) to its transfer chunk, the 2-bit words
+  and the dense bitmap of its codes: P1 (``cuda_parse.parse_pack``) where
+  the checkout has ``ops/cuda_parse.py``, timed from fresh zeroed chunks
+  (``block``: the call; ``block_dev``: the card's time queued behind a
+  sleep kernel), and where it has not, the host path it ran: the
+  encode, the pack and the copy of both arrays to the card (``block``:
+  the host's time to the copies' end); the digest is the words and the
+  bitmap; ``bound_ms`` is the block read once and the words and bitmap
+  written once at 3.35 TB/s.
 
 Where a checkout's K1, K3 or K5 takes codes (before its chunk-input
 kernel), the timed call is ``sortcount.codes_from_chunk`` followed by it,
@@ -610,6 +620,54 @@ def e1_worker(cs, dev, reps: int) -> dict:
     return out
 
 
+def p1_worker(cs, dev, reps: int) -> dict:
+    """One 8 MiB FASTA block to its transfer chunk (``p1`` above)."""
+    import numpy as np
+    import torch
+    from kaarme_tpu_torch.io import fastio
+
+    blk = cs.reads_fasta_bytes(60_000)[:8 << 20]
+    raw = torch.frombuffer(bytearray(blk), dtype=torch.uint8)
+    out = dict(ms={}, digest={})
+    if importlib.util.find_spec("kaarme_tpu_torch.ops.cuda_parse") is None:
+        from kaarme_tpu_torch.models.sort_counter import to_device
+
+        def fn():
+            packed, mask = fastio.pack_stream(fastio.encode_fasta(blk)[0])
+            return to_device(packed, dev), to_device(mask, dev)
+
+        out["api"] = "host encode + pack + copy"
+        words, bits = fn()
+        out["ms"]["block"] = cs.cuda_ms(fn, reps)
+    else:
+        from kaarme_tpu_torch.ops import cuda_parse
+
+        raw = raw.to(dev)
+        span = cs.N_WINDOWS + cs.K - 1
+
+        def prepare():
+            return (cuda_parse.ParseState(dev),
+                    [(torch.zeros(-(-span // 16), dtype=torch.int32, device=dev),
+                      torch.zeros(-(-span // 32), dtype=torch.int32, device=dev))])
+
+        def run(state, chunks):
+            cuda_parse.parse_pack(raw, fasta=True, state=state, chunks=chunks, base=0,
+                                  sb=cs.N_WINDOWS, span=span)
+
+        out["api"] = "P1"
+        state, chunks = prepare()
+        run(state, chunks)
+        n = int(state.buf[2])
+        words, bits = chunks[0][0][:-(-n // 16)], chunks[0][1][:-(-n // 32)]
+        out["ms"]["block"] = cs.cuda_ms_fresh(prepare, run, reps)
+        out["ms"]["block_dev"] = cs.cuda_ms_queued(prepare, run, reps)
+    torch.cuda.synchronize()
+    out["digest"]["block"] = digest([words, bits])
+    out["bound_ms"] = (len(blk) + (words.numel() + bits.numel()) * 4) / 3.35e12 * 1e3
+    out["codes"] = int(np.asarray(fastio.encode_fasta(blk)[0]).shape[0])
+    return out
+
+
 def worker(kernel: str, root: str, reps: int) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -630,6 +688,8 @@ def worker(kernel: str, root: str, reps: int) -> dict:
         return bloom_worker(cs, dev, root, reps)
     if kernel == "e1":
         return dict(root=root, **e1_worker(cs, dev, reps))
+    if kernel == "p1":
+        return dict(root=root, **p1_worker(cs, dev, reps))
     api, calls = {"k1": k1_calls, "k2": k2_calls, "k3": k3_calls, "k4": k4_calls,
                   "k5": k5_calls}[kernel](cs, dev)
     out = dict(root=root, api=api, ms={}, digest={})
@@ -647,7 +707,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other")
     ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "t1", "bloom", "table",
-                                         "w1", "bloom_e2e", "e1"),
+                                         "w1", "bloom_e2e", "e1", "p1"),
                     required=True)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
