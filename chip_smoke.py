@@ -8,22 +8,21 @@ Run from the repository root.  It builds the port's CUDA kernels from
 
 1. K1 (dense run segmentation) at the skm path's shape (k=51, 2^26
    windows of 150 bp reads with separators and N patches), from the
-   transfer chunk (2-bit words plus the separator list, and plus the
-   dense bitmap): kernel == plain PyTorch version (the unpack, then the
-   plain segmentation) in both formats, and an overflow case that must
-   leave a guard region past ``cap`` untouched; its time beside the
-   plain version's and its bound;
+   transfer chunk (2-bit words plus the separator bitmap): kernel ==
+   plain PyTorch version (the unpack, then the plain segmentation), and
+   an overflow case that must leave a guard region past ``cap``
+   untouched; its time beside the plain version's and its bound;
 2. K2 (segment-sum + compaction) in embedded mode at the run-store
    merge's shape (6 columns) and in full_sum mode at the finalize's
    shape (4 key columns + count): kernel == plain; and bit for bit on
    its edge cases: one key over more than 64 of its tiles in both modes
    (its full_sum mass crossing 2^20), W = 1 and W = 15, N = 0, and
    out_len < nd with a guard region past out_len left untouched;
-3. K3 (canonical window keys) from the transfer chunk (separator list
-   and bitmap) at the classic path's shape (k=51 and k=13, 2^26
-   windows) and at k=201 on a small and an odd tail length: kernel ==
-   plain (the unpack, then the plain window keys), bit for bit; its time
-   beside the plain version's and the unpack's alone;
+3. K3 (canonical window keys) from the transfer chunk at the classic
+   path's shape (k=51 and k=13, 2^26 windows) and at k=201 on a small
+   and an odd tail length: kernel == plain (the unpack, then the plain
+   window keys), bit for bit; its time beside the plain version's and
+   the unpack's alone;
 4. K4 (linear merge fused with the compaction) at the classic merge's
    shape: the dense store after one 2^26-window superstep, padded to
    2^23 rows, merged with the next 2^26 sorted window keys, embedded
@@ -31,12 +30,11 @@ Run from the repository root.  It builds the port's CUDA kernels from
    region; one key over more than 64 of its tiles whose total crosses
    2^20 (W = 4, 1 and 13), with a guard past out_len < nd; and K2's
    full_sum mode at the classic k=13 superstep's shape;
-5. K5 (slotted run segmentation) from K1's transfer chunk (separator
-   list and bitmap) at the slotted skm path's shape (k=51, 2^26
-   windows, S=96) and with S=16, where tiles overflow and the same rows
-   must be dropped: kernel == plain (the unpack, then the plain
-   segmentation), rows and max_tile_runs; and on a tail of no whole
-   number of 512-window tiles;
+5. K5 (slotted run segmentation) from K1's transfer chunk at the
+   slotted skm path's shape (k=51, 2^26 windows, S=96) and with S=16,
+   where tiles overflow and the same rows must be dropped: kernel ==
+   plain (the unpack, then the plain segmentation), rows and
+   max_tile_runs; and on a tail of no whole number of 512-window tiles;
 6. T1 (the atomic probe-table insert from K3's key columns: validity
    and the murmur3 hash in the kernel, equal keys of a warp aggregated)
    against its plain version (torch validity and ``hash_words``, then
@@ -256,8 +254,8 @@ def chunk_of(codes):
     """The transfer chunk of int32 codes (>= 4: invalid) as the host ships
     it (``fastio.pack_stream`` and ``SortKmerCounter._prepare``): 2-bit
     bases, base i at bits 2*(i%16) of word i/16, invalid positions as
-    base 0; the separator list; the dense bitmap, bit i%32 of word i/32.
-    All int32 tensors holding u32 bit patterns."""
+    base 0; the separator bitmap, bit i%32 of word i/32.  Both int32
+    tensors holding u32 bit patterns."""
     import torch
 
     L = codes.shape[0]
@@ -267,8 +265,7 @@ def chunk_of(codes):
     packed = (bases << (2 * torch.arange(16, device=codes.device))).sum(1).to(torch.int32)
     bits = torch.cat([bad.long(), bad.new_zeros((-L) % 32).long()]).view(-1, 32)
     mask = (bits << torch.arange(32, device=codes.device)).sum(1).to(torch.int32)
-    sep = torch.nonzero(bad).flatten().to(torch.int32)
-    return packed, sep, mask
+    return packed, mask
 
 
 # H100 SXM peaks (NVIDIA's data sheet; the card's power limit is printed
@@ -296,59 +293,50 @@ def timed(d: dict) -> dict:
 
 
 def phase_k1(dev):
-    """K1 from the transfer chunk at the skm path's shape, in both
-    formats, against its plain version (the unpack, then the plain
-    segmentation), with an overflow guard; its time beside the plain
-    version's and its bound."""
+    """K1 from the transfer chunk at the skm path's shape against its
+    plain version (the unpack, then the plain segmentation), with an
+    overflow guard; its time beside the plain version's and its bound."""
     import torch
     from kaarme_tpu_torch.ops import cuda_skm, sortcount
 
     L = N_WINDOWS + K - 1
-    packed, sep, mask = chunk_of(read_stream(dev, 4_600_000, L, n_every=100_003))
+    packed, mask = chunk_of(read_stream(dev, 4_600_000, L, n_every=100_003))
     cap = sortcount.next_store_size(N_WINDOWS // 8)     # the counter's first capacity
     Wc = cuda_skm.content_words(K)
-    err, got = 0, None
-    for dense, s in ((False, sep), (True, mask)):
-        g = cuda_skm.run_rows_dense(packed, s, k=K, n=N_WINDOWS, cap=cap, dense=dense)
-        want = cuda_skm.run_rows_dense_plain(packed, s, k=K, n=N_WINDOWS, cap=cap, dense=dense)
-        torch.cuda.synchronize()
-        rows = want[1].tolist()
-        if g[1].tolist() != rows or rows[0] > cap:
-            raise AssertionError(f"K1 dense={dense} rows {g[1].tolist()} vs plain {rows} "
-                                 f"(cap {cap})")
-        err = max(err, max_abs_err(g[0], want[0]))
-        if err:
-            raise AssertionError(f"K1 dense={dense} kernel != plain (max abs err {err})")
-        # overflow: a capacity below the live rows; nothing may land past it
-        small, guard = rows[0] // 3, 4096
-        out = torch.full((Wc + 1, small + guard), 0x5A5A5A5A, dtype=torch.int32, device=dev)
-        ocols, orows = cuda_skm.launch_dense(packed, s, K, N_WINDOWS, out, small, dense=dense)
-        torch.cuda.synchronize()
-        if orows.tolist() != rows:
-            raise AssertionError(f"K1 overflow rows {orows.tolist()} != {rows}")
-        if not bool((out[:, small:] == 0x5A5A5A5A).all()):
-            raise AssertionError("K1 wrote past cap")
-        err = max(err, max_abs_err(ocols, [c[:small] for c in want[0]]))
-        if err:
-            raise AssertionError("K1 overflow prefix != plain")
-        del want, out, ocols
-        got = got or g
-    run = lambda s, dense: cuda_skm.run_rows_dense(packed, s, k=K, n=N_WINDOWS, cap=cap,
-                                                   dense=dense)
-    ms = cuda_ms(lambda: run(sep, False))
-    dense_ms = cuda_ms(lambda: run(mask, True))
-    plain_ms = cuda_ms(lambda: cuda_skm.run_rows_dense_plain(packed, sep, k=K, n=N_WINDOWS,
+    got = cuda_skm.run_rows_dense(packed, mask, k=K, n=N_WINDOWS, cap=cap)
+    want = cuda_skm.run_rows_dense_plain(packed, mask, k=K, n=N_WINDOWS, cap=cap)
+    torch.cuda.synchronize()
+    rows = want[1].tolist()
+    if got[1].tolist() != rows or rows[0] > cap:
+        raise AssertionError(f"K1 rows {got[1].tolist()} vs plain {rows} (cap {cap})")
+    err = max_abs_err(got[0], want[0])
+    if err:
+        raise AssertionError(f"K1 kernel != plain (max abs err {err})")
+    # overflow: a capacity below the live rows; nothing may land past it
+    small, guard = rows[0] // 3, 4096
+    out = torch.full((Wc + 1, small + guard), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    ocols, orows = cuda_skm.launch_dense(packed, mask, K, N_WINDOWS, out, small)
+    torch.cuda.synchronize()
+    if orows.tolist() != rows:
+        raise AssertionError(f"K1 overflow rows {orows.tolist()} != {rows}")
+    if not bool((out[:, small:] == 0x5A5A5A5A).all()):
+        raise AssertionError("K1 wrote past cap")
+    err = max(err, max_abs_err(ocols, [c[:small] for c in want[0]]))
+    if err:
+        raise AssertionError("K1 overflow prefix != plain")
+    del want, out, ocols
+    ms = cuda_ms(lambda: cuda_skm.run_rows_dense(packed, mask, k=K, n=N_WINDOWS, cap=cap))
+    plain_ms = cuda_ms(lambda: cuda_skm.run_rows_dense_plain(packed, mask, k=K, n=N_WINDOWS,
                                                              cap=cap))
-    # the sparse chunk in, every row of the Wc+1 columns and [rows] out;
-    # ~20 operations per window (m-word, validity, sliding minimum, starts)
-    b = bound([packed, sep], list(got[0]) + [got[1]], 20.0 * N_WINDOWS)
+    # the chunk in, every row of the Wc+1 columns and [rows] out; ~20
+    # operations per window (m-word, validity, sliding minimum, starts)
+    b = bound([packed, mask], list(got[0]) + [got[1]], 20.0 * N_WINDOWS)
     print(f"K1 skm_dense k={K} n={N_WINDOWS} cap={cap} rows={rows[0]} from the chunk "
-          f"({packed.numel()} packed words, {sep.numel()} separators / {mask.numel()} bitmap "
-          f"words): == plain in both formats, overflow cap={small}: guard intact; kernel "
-          f"{ms:.3f} ms sparse, {dense_ms:.3f} ms dense; codes_from_chunk + plain "
+          f"({packed.numel()} packed words, {mask.numel()} bitmap words): == plain, overflow "
+          f"cap={small}: guard intact; kernel {ms:.3f} ms; codes_from_chunk + plain "
           f"{plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
           f"{b['bound_bytes']} bytes, {b['bound_ops']:.0f} operations)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, **b), got
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b), got
 
 
 def k2_merge_input(cols, r: int):
@@ -539,62 +527,53 @@ def k2_cases(dev) -> int:
 
 def phase_k3(dev):
     """K3 from the transfer chunk at the classic path's shape (k=51 and
-    k=13 over 2^26 windows, in both chunk formats; and the next 2^26
-    windows for phase_k4) and at k=201 (small n and a tail n that is no
-    multiple of the tile), against its plain version (the unpack, then
-    the plain window keys), bit for bit; its time beside the plain
-    version's, the unpack's alone, and its bound on the chunk's bytes."""
+    k=13 over 2^26 windows; and the next 2^26 windows for phase_k4) and
+    at k=201 (small n and a tail n that is no multiple of the tile),
+    against its plain version (the unpack, then the plain window keys),
+    bit for bit; its time beside the plain version's, the unpack's
+    alone, and its bound on the chunk's bytes."""
     import torch
     from kaarme_tpu_torch.ops import cuda_winkeys, sortcount
 
     err, times, batches = 0, {}, {}
     for k in (51, 13):
         codes = read_stream(dev, 4_600_000, 2 * N_WINDOWS + k - 1, n_every=100_003)
-        packed, sep, mask = chunk_of(codes[:N_WINDOWS + k - 1])
-        got = None
-        for dense, s in ((False, sep), (True, mask)):
-            g = cuda_winkeys.window_keys(packed, s, k=k, n=N_WINDOWS, dense=dense)
-            want = cuda_winkeys.window_keys_plain(packed, s, k=k, n=N_WINDOWS, dense=dense)
-            torch.cuda.synchronize()
-            e = max_abs_err(g, want)
-            if e:
-                raise AssertionError(f"K3 k={k} dense={dense} kernel != plain (max abs err {e})")
-            err = max(err, e)
-            del want
-            got = got or g
-        run = lambda s, dense: cuda_winkeys.window_keys(packed, s, k=k, n=N_WINDOWS, dense=dense)
-        ms = cuda_ms(lambda: run(sep, False))
-        dense_ms = cuda_ms(lambda: run(mask, True))
-        plain_ms = cuda_ms(lambda: cuda_winkeys.window_keys_plain(packed, sep, k=k, n=N_WINDOWS))
-        unpack_ms = cuda_ms(lambda: sortcount.codes_from_chunk(packed, sep, k=k, n=N_WINDOWS,
-                                                               dense=False))
-        # the sparse chunk in, the W key columns out; per window and key
-        # word ~12 operations (two funnel shifts, the field reversal, the
-        # compare and select), plus the two bitmap ranks
-        b = bound([packed, sep], got, (12.0 * len(got) + 8.0) * N_WINDOWS)
-        times[k] = (ms, plain_ms, b, dense_ms, unpack_ms)
+        packed, mask = chunk_of(codes[:N_WINDOWS + k - 1])
+        got = cuda_winkeys.window_keys(packed, mask, k=k, n=N_WINDOWS)
+        want = cuda_winkeys.window_keys_plain(packed, mask, k=k, n=N_WINDOWS)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"K3 k={k} kernel != plain (max abs err {e})")
+        err = max(err, e)
+        del want
+        ms = cuda_ms(lambda: cuda_winkeys.window_keys(packed, mask, k=k, n=N_WINDOWS))
+        plain_ms = cuda_ms(lambda: cuda_winkeys.window_keys_plain(packed, mask, k=k, n=N_WINDOWS))
+        unpack_ms = cuda_ms(lambda: sortcount.codes_from_chunk(packed, mask, k=k, n=N_WINDOWS))
+        # the chunk in, the W key columns out; per window and key word ~12
+        # operations (two funnel shifts, the field reversal, the compare
+        # and select), plus the two bitmap ranks
+        b = bound([packed, mask], got, (12.0 * len(got) + 8.0) * N_WINDOWS)
+        times[k] = (ms, plain_ms, b, unpack_ms)
         nxt = chunk_of(codes[N_WINDOWS:])
         batches[k] = (got, cuda_winkeys.window_keys(nxt[0], nxt[1], k=k, n=N_WINDOWS))
         print(f"K3 window_keys k={k} n={N_WINDOWS} from the chunk ({packed.numel()} packed "
-              f"words, {sep.numel()} separators / {mask.numel()} bitmap words): == plain in both "
-              f"formats; kernel {ms:.3f} ms sparse, {dense_ms:.3f} ms dense; codes_from_chunk + "
-              f"plain {plain_ms:.3f} ms (the unpack alone {unpack_ms:.3f} ms); bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bound_bytes']} bytes, "
+              f"words, {mask.numel()} bitmap words): == plain; kernel {ms:.3f} ms; "
+              f"codes_from_chunk + plain {plain_ms:.3f} ms (the unpack alone {unpack_ms:.3f} "
+              f"ms); bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bound_bytes']} bytes, "
               f"{b['bound_ops']:.0f} operations)")
-        del codes, packed, sep, mask, nxt
+        del codes, packed, mask, nxt
     for n in (1 << 16, 100_003):
-        packed, sep, mask = chunk_of(read_stream(dev, 4_600_000, n + 200, n_every=9_973))
-        for dense, s in ((False, sep), (True, mask)):
-            e = max_abs_err(cuda_winkeys.window_keys(packed, s, k=201, n=n, dense=dense),
-                            cuda_winkeys.window_keys_plain(packed, s, k=201, n=n, dense=dense))
-            if e:
-                raise AssertionError(f"K3 k=201 n={n} dense={dense} kernel != plain (max abs "
-                                     f"err {e})")
-        print(f"K3 window_keys k=201 n={n}: kernel == plain in both formats")
-    ms, plain_ms, b, dense_ms, unpack_ms = times[51]
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms,
-                unpack_ms=unpack_ms, k13_ms=times[13][0], k13_dense_ms=times[13][3],
-                k13_plain_ms=times[13][1], k13_bound_ms=times[13][2]["bound_ms"], **b), batches
+        packed, mask = chunk_of(read_stream(dev, 4_600_000, n + 200, n_every=9_973))
+        e = max_abs_err(cuda_winkeys.window_keys(packed, mask, k=201, n=n),
+                        cuda_winkeys.window_keys_plain(packed, mask, k=201, n=n))
+        if e:
+            raise AssertionError(f"K3 k=201 n={n} kernel != plain (max abs err {e})")
+        print(f"K3 window_keys k=201 n={n}: kernel == plain")
+    ms, plain_ms, b, unpack_ms = times[51]
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, unpack_ms=unpack_ms,
+                k13_ms=times[13][0], k13_plain_ms=times[13][1],
+                k13_bound_ms=times[13][2]["bound_ms"], **b), batches
 
 
 def hot_runs(dev, W: int, embedded: bool, n_hot: int, seed: int):
@@ -742,48 +721,43 @@ def phase_k4(dev, batches):
 
 
 def phase_k5(dev):
-    """K5 from K1's transfer chunk, in both formats, against its plain
-    version (the unpack, then the plain slotted segmentation) at the
-    slotted skm path's shape (k=51, 2^26 windows, S=96), with S=16
-    (tiles overflow: the same rows dropped, the same max_tile_runs > S),
-    and on a tail of no whole number of 512-window tiles; its time beside
-    the plain version's and its bound."""
+    """K5 from K1's transfer chunk against its plain version (the unpack,
+    then the plain slotted segmentation) at the slotted skm path's shape
+    (k=51, 2^26 windows, S=96), with S=16 (tiles overflow: the same rows
+    dropped, the same max_tile_runs > S), and on a tail of no whole
+    number of 512-window tiles; its time beside the plain version's and
+    its bound."""
     import torch
     from kaarme_tpu_torch.ops import cuda_skm
 
-    packed, sep, mask = chunk_of(read_stream(dev, 4_600_000, N_WINDOWS + K - 1, n_every=100_003))
-    err, ms, dense_ms, plain_ms, b = 0, None, None, None, None
+    packed, mask = chunk_of(read_stream(dev, 4_600_000, N_WINDOWS + K - 1, n_every=100_003))
+    err, ms, plain_ms, b = 0, None, None, None
     for n, S in ((N_WINDOWS, 96), (N_WINDOWS, 16), (N_WINDOWS // 3 + 77, 96)):
-        for dense, s in ((False, sep), (True, mask)):
-            got = cuda_skm.run_rows_slotted(packed, s, k=K, n=n, S=S, dense=dense)
-            want = cuda_skm.run_rows_slotted_plain(packed, s, k=K, n=n, S=S, dense=dense)
-            torch.cuda.synchronize()
-            mr = int(want[1])
-            e = max_abs_err(got[0], want[0])
-            if e or int(got[1]) != mr or (S == 16 and mr <= S):
-                raise AssertionError(f"K5 n={n} S={S} dense={dense}: kernel != plain (max abs "
-                                     f"err {e}, max_tile_runs {int(got[1])} vs {mr})")
-            err = max(err, e)
-            del want
+        got = cuda_skm.run_rows_slotted(packed, mask, k=K, n=n, S=S)
+        want = cuda_skm.run_rows_slotted_plain(packed, mask, k=K, n=n, S=S)
+        torch.cuda.synchronize()
+        mr = int(want[1])
+        e = max_abs_err(got[0], want[0])
+        if e or int(got[1]) != mr or (S == 16 and mr <= S):
+            raise AssertionError(f"K5 n={n} S={S}: kernel != plain (max abs err {e}, "
+                                 f"max_tile_runs {int(got[1])} vs {mr})")
+        err = max(err, e)
+        del want
         rows = cuda_skm.slot_rows(n, S)
         what = f"{rows} slot rows, max_tile_runs {mr}" + (" > S: rows dropped" if mr > S else "")
         if n == N_WINDOWS and S == 96:
-            run = lambda s, dense: cuda_skm.run_rows_slotted(packed, s, k=K, n=n, S=S,
-                                                             dense=dense)
-            ms = cuda_ms(lambda: run(sep, False))
-            dense_ms = cuda_ms(lambda: run(mask, True))
-            plain_ms = cuda_ms(lambda: cuda_skm.run_rows_slotted_plain(packed, sep, k=K, n=n,
+            ms = cuda_ms(lambda: cuda_skm.run_rows_slotted(packed, mask, k=K, n=n, S=S))
+            plain_ms = cuda_ms(lambda: cuda_skm.run_rows_slotted_plain(packed, mask, k=K, n=n,
                                                                        S=S))
-            # the sparse chunk in, every slot row and max_tile_runs out;
-            # ~20 operations per window, as K1
-            b = bound([packed, sep], list(got[0]) + [got[1]], 20.0 * n)
-            what += (f"; kernel {ms:.3f} ms sparse, {dense_ms:.3f} ms dense; codes_from_chunk "
-                     f"+ plain {plain_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
-                     f"{b['bound_bytes']} bytes, {b['bound_ops']:.0f} operations)")
-        print(f"K5 skm_slotted k={K} n={n} S={S} from the chunk: {what}; kernel == plain in "
-              "both formats")
+            # the chunk in, every slot row and max_tile_runs out; ~20
+            # operations per window, as K1
+            b = bound([packed, mask], list(got[0]) + [got[1]], 20.0 * n)
+            what += (f"; kernel {ms:.3f} ms; codes_from_chunk + plain {plain_ms:.3f} ms; bound "
+                     f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bound_bytes']} bytes, "
+                     f"{b['bound_ops']:.0f} operations)")
+        print(f"K5 skm_slotted k={K} n={n} S={S} from the chunk: {what}; kernel == plain")
         del got
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, **b)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
 
 
 TABLE_TILE, TABLE_BATCH_TILES = 1 << 14, 64     # CounterConfig's defaults: 2^20 windows
@@ -798,8 +772,8 @@ def table_batch(codes, b: int, k: int):
     from kaarme_tpu_torch.ops import sortcount
 
     per = TABLE_TILE * TABLE_BATCH_TILES
-    packed, seps, _ = chunk_of(codes[b * per: (b + 1) * per + k - 1])
-    return lambda: sortcount.window_keys_from_chunk(packed, seps, k=k, n=per)
+    packed, bitmap = chunk_of(codes[b * per: (b + 1) * per + k - 1])
+    return lambda: sortcount.window_keys_from_chunk(packed, bitmap, k=k, n=per)
 
 
 def occupied_rows(tk, cn):
@@ -1189,15 +1163,15 @@ def phase_bloom(dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for b in range(before):
-        packed, seps, _ = chunk_of(codes[b * per: (b + 1) * per + K - 1])
+        packed, bitmap = chunk_of(codes[b * per: (b + 1) * per + K - 1])
         torch.cuda.set_sync_debug_mode("error")
         try:
-            _, _, n1, n2 = sortcount.bloom_pass1_superstep(kf[0], kf[1], packed, seps, k=K,
+            _, _, n1, n2 = sortcount.bloom_pass1_superstep(kf[0], kf[1], packed, bitmap, k=K,
                                                            n=per, hfn=hfn, scratch=scratch)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         new_k = [new_k[0] + n1, new_k[1] + n2]
-        _, _, n1, n2 = sortcount.bloom_pass1_superstep(pf[0], pf[1], packed, seps, k=K, n=per,
+        _, _, n1, n2 = sortcount.bloom_pass1_superstep(pf[0], pf[1], packed, bitmap, k=K, n=per,
                                                        hfn=hfn, kernels="plain")
         new_p = [new_p[0] + n1, new_p[1] + n2]
     torch.cuda.synchronize()
@@ -1226,9 +1200,9 @@ def phase_bloom(dev):
     scratch = cuda_bloom.scratch_for(N_WINDOWS, dev)
     sf = [bloom.make_bloom(bits, dev) for _ in range(2)]
     for s in range(2):
-        packed, seps, _ = chunk_of(codes[s * N_WINDOWS: (s + 1) * N_WINDOWS + K - 1])
-        keys = sortcount.window_keys_from_chunk(packed, seps, k=K, n=N_WINDOWS)
-        del packed, seps
+        packed, bitmap = chunk_of(codes[s * N_WINDOWS: (s + 1) * N_WINDOWS + K - 1])
+        keys = sortcount.window_keys_from_chunk(packed, bitmap, k=K, n=N_WINDOWS)
+        del packed, bitmap
         res = bloom_pair(dev, bits, keys, hfn, sf, scratch, f"superstep {s} k={K}", True)
         sf = res.pop("filters")
         out[f"superstep{s}"] = res
@@ -1277,8 +1251,8 @@ def phase_bloom(dev):
                 c = c[b * n: (b + 1) * n + k - 1]
             else:
                 c = torch.zeros(n + k - 1, dtype=torch.int32, device=dev)
-            packed, seps, _ = chunk_of(c)
-            keys = sortcount.window_keys_from_chunk(packed, seps, k=k, n=n)
+            packed, bitmap = chunk_of(c)
+            keys = sortcount.window_keys_from_chunk(packed, bitmap, k=k, n=n)
             res = bloom_pair(dev, ebits, keys, hfn, f, scratch, f"{label} batch {b}", False)
             f = res["filters"]
         edges.append(f"{label}: counters {res['new']}")

@@ -89,24 +89,22 @@ skm_rows_kernel(const uint32_t* __restrict__ packed, long long npk,
 using namespace k1;
 
 // Scratch (int64 words) the wrapper allocates: ticket, total, two status
-// words per tile, then, for a separator list, the bitmap it scatters into.
-extern "C" long long kt_skm_dense_scratch(long long n, long long L, int dense) {
+// words per tile.
+extern "C" long long kt_skm_dense_scratch(long long n) {
     const long long nt = (n + TILE - 1) / TILE;
-    return 2 + 2 * nt + bitmap_scratch(L, dense);
+    return 2 + 2 * nt;
 }
 
 // packed: u32 [npk] 2-bit bases, npk >= ceil(L / 16) with L = n + k - 1.
-// sep: the invalid positions, a u32 bitmap of nsep >= ceil(L / 32) words
-// (dense) or a u32 index list of nsep entries (indices >= L dropped).
+// sep: the invalid positions, a u32 bitmap of nsep >= ceil(L / 32) words.
 // out: Wc+1 u32 columns of stride ld >= cap; rows [0, cap) are written,
 // sentinels from rows_used on.  scratch: kt_skm_dense_scratch int64s.
 // rows: int32 [2] = [rows_exact, rows_used].  Returns a cudaError_t.
 extern "C" int kt_skm_dense(const void* packed, long long npk, const void* sep, long long nsep,
-                            int dense, long long n, int k, void* out, long long cap,
-                            long long ld, void* scratch, void* rows, void* stream) {
+                            long long n, int k, void* out, long long cap, long long ld,
+                            void* scratch, void* rows, void* stream) {
     const long long L = n + k - 1;
-    if (k < M || n < 1 || npk * 16 < L || (dense && nsep * 32 < L) || nsep < 0 || cap < 0 ||
-        ld < cap)
+    if (k < M || n < 1 || npk * 16 < L || nsep * 32 < L || cap < 0 || ld < cap)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const Geo g = make_geo(k, L, n);
@@ -117,17 +115,14 @@ extern "C" int kt_skm_dense(const void* packed, long long npk, const void* sep, 
     unsigned long long* st_lts = reinterpret_cast<unsigned long long*>(sc + 2);
     unsigned long long* st_cnt = st_lts + nt;
     cudaError_t e;
-    const size_t zero = 8 * (size_t)kt_skm_dense_scratch(n, L, dense);
+    const size_t zero = 8 * (size_t)kt_skm_dense_scratch(n);
     if ((e = cudaMemsetAsync(scratch, 0, zero, s)) != cudaSuccess) return (int)e;
-    const uint32_t* bm;
-    long long nbm;
-    int err = stage_bitmap((const void*)skm_rows_kernel, g, sep, nsep, dense,
-                           reinterpret_cast<uint32_t*>(st_cnt + nt), s, &bm, &nbm);
+    int err = set_smem((const void*)skm_rows_kernel, g);
     if (err) return err;
     uint32_t* o = static_cast<uint32_t*>(out);
     skm_rows_kernel<<<(unsigned)nt, THREADS, smem_bytes(g), s>>>(
-        static_cast<const uint32_t*>(packed), npk, bm, nbm, g, st_lts, st_cnt, ticket, total, nt,
-        o, cap, ld);
+        static_cast<const uint32_t*>(packed), npk, static_cast<const uint32_t*>(sep), nsep, g,
+        st_lts, st_cnt, ticket, total, nt, o, cap, ld);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     fill_tail_kernel<<<fill_blocks(cap, 256), 256, 0, s>>>(o, g.Wc + 1, ld, cap, total, -1,
                                                           static_cast<int*>(rows));

@@ -6,9 +6,8 @@
 // run_rows_dense_pallas and run_rows_slotted_pallas), together with the
 // unpack in front of them (ops/sortcount.py::codes_from_chunk).  Input:
 // the chunk the host ships, 2-bit bases (base i at bits 2*(i%16) of word
-// i/16) and the invalid positions as a bitmap (bit i%32 of word i/32; a
-// separator list is scattered into one first, sep_bitmap below).  For
-// every window of the n-window stream: the 16-base big-endian m-words,
+// i/16) and the invalid positions as a bitmap (bit i%32 of word i/32).
+// For every window of the n-window stream: the 16-base big-endian m-words,
 // validity (no invalid base in [x, x+k)), the minimizer (min of the k-15
 // m-words), and the run starts (a minimizer or validity change, an LMAX
 // = 16 cap anchored at the last TRUE start, and every window at or past
@@ -18,7 +17,7 @@
 // bases are read as the chunk holds them.
 //
 // What bounds it on the H100: bytes.  It reads n/4 bytes of packed bases
-// plus the separators (~19 MB at n = 2^26); the rows the kernels write
+// plus n/8 bytes of bitmap (~25 MB at n = 2^26); the rows the kernels write
 // after it are their own.  The work per window is a few dozen integer
 // operations.  The design keeps every step O(1) per window, whatever k
 // (any k >= 16 whose tile fits in 227 KB of shared memory: k <= 16,721):
@@ -39,11 +38,10 @@
 // next tile.  Tile: 2048 windows, 256 threads of 8 windows, 8 blocks per
 // SM: the kernels that include it run at 32 registers per thread
 // (__launch_bounds__(THREADS, MIN_BLOCKS); ptxas -v for sm_90a: K1 with a
-// 24-byte stack frame of spills, K5 with none), sep_bitmap at 14.
+// 24-byte stack frame of spills, K5 with none).
 //
-// Every function here is inline and the one kernel static, so that each
-// kernel source may include the header without a duplicate symbol at
-// link time.
+// Every function here is inline or static, so that each kernel source
+// may include the header without a duplicate symbol at link time.
 #pragma once
 
 #include "scan.cuh"
@@ -335,48 +333,14 @@ __device__ __forceinline__ void segment_chunk_tile(const uint32_t* __restrict__ 
     }
 }
 
-// Separator list -> invalid bitmap (the bitmap is zeroed before); indices
-// at or past L are dropped.
-static __global__ void sep_bitmap(const uint32_t* __restrict__ sep, long long nsep, long long L,
-                                  uint32_t* bm) {
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nsep;
-         i += (long long)gridDim.x * blockDim.x) {
-        const uint32_t p = sep[i];
-        if (p < L) atomicOr(bm + (p >> 5), 1u << (p & 31));
-    }
-}
-
-// u32 words of the bitmap a separator list is scattered into (0 for a
-// dense chunk), rounded up to whole int64 scratch words.
-__host__ inline long long bitmap_scratch(long long L, int dense) {
-    return dense ? 0 : ((L + 31) / 32 + 1) / 2;
-}
-
-// Host side, both kernels, after the caller zeroed its scratch: let
-// ``kern`` take the tile's shared memory, and point *bm / *nbm at the
-// invalid bitmap, the dense one as given or ``built`` after the
-// separator list is scattered into it.  Returns a cudaError_t.
-__host__ inline int stage_bitmap(const void* kern, const Geo& g, const void* sep, long long nsep,
-                                 int dense, uint32_t* built, cudaStream_t s,
-                                 const uint32_t** bm, long long* nbm) {
+// Host side, both kernels: let ``kern`` take the tile's shared memory.
+// Returns a cudaError_t.
+__host__ inline int set_smem(const void* kern, const Geo& g) {
     const size_t sm = smem_bytes(g);
     if (sm > 227 * 1024) return (int)cudaErrorInvalidValue;
-    cudaError_t e;
-    if (sm > 48 * 1024 &&
-        (e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm)) !=
-            cudaSuccess)
-        return (int)e;
-    *bm = static_cast<const uint32_t*>(sep);
-    *nbm = nsep;
-    if (!dense) {
-        if (nsep > 0) {
-            sep_bitmap<<<fill_blocks(nsep, 256), 256, 0, s>>>(static_cast<const uint32_t*>(sep),
-                                                              nsep, g.L, built);
-            if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-        }
-        *bm = built;
-        *nbm = (g.L + 31) / 32;
-    }
+    if (sm > 48 * 1024)
+        return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)sm);
     return 0;
 }
 

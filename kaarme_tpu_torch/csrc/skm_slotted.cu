@@ -109,24 +109,24 @@ skm_slotted_kernel(const uint32_t* __restrict__ packed, long long npk,
 using namespace k5;
 
 // Scratch (int64 words) the wrapper allocates: the ticket, one status
-// word per tile, then, for a separator list, the bitmap it scatters into.
-extern "C" long long kt_skm_slotted_scratch(long long n, long long L, int dense) {
+// word per tile.
+extern "C" long long kt_skm_slotted_scratch(long long n) {
     const long long nt = (n + TILE - 1) / TILE;
-    return 1 + nt + bitmap_scratch(L, dense);
+    return 1 + nt;
 }
 
-// packed, sep, dense: the transfer chunk, as kt_skm_dense takes it (L =
+// packed, sep: the transfer chunk, as kt_skm_dense takes it (L =
 // n + k - 1).  1 <= S <= 512.  out: Wc+1 u32 columns of stride ld >=
 // ceil(n / 512) * S, every row of which is written.  scratch:
 // kt_skm_slotted_scratch int64s.  maxruns: int32 [1], the most run
 // starts in any slot tile.  Returns a cudaError_t.
 extern "C" int kt_skm_slotted(const void* packed, long long npk, const void* sep, long long nsep,
-                              int dense, long long n, int k, int S, void* out, long long ld,
-                              void* scratch, void* maxruns, void* stream) {
+                              long long n, int k, int S, void* out, long long ld, void* scratch,
+                              void* maxruns, void* stream) {
     const long long L = n + k - 1;
     const long long n_tiles = (n + SLOT_TILE - 1) / SLOT_TILE;
-    if (k < M || n < 1 || npk * 16 < L || (dense && nsep * 32 < L) || nsep < 0 || S < 1 ||
-        S > SLOT_TILE || ld < n_tiles * S)
+    if (k < M || n < 1 || npk * 16 < L || nsep * 32 < L || S < 1 || S > SLOT_TILE ||
+        ld < n_tiles * S)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const Geo g = make_geo(k, L, n);
@@ -136,16 +136,13 @@ extern "C" int kt_skm_slotted(const void* packed, long long npk, const void* sep
     unsigned long long* st_lts = reinterpret_cast<unsigned long long*>(sc + 1);
     int* mr = static_cast<int*>(maxruns);
     cudaError_t e;
-    const size_t zero = 8 * (size_t)kt_skm_slotted_scratch(n, L, dense);
+    const size_t zero = 8 * (size_t)kt_skm_slotted_scratch(n);
     if ((e = cudaMemsetAsync(scratch, 0, zero, s)) != cudaSuccess) return (int)e;
     if ((e = cudaMemsetAsync(mr, 0, sizeof(int), s)) != cudaSuccess) return (int)e;
-    const uint32_t* bm;
-    long long nbm;
-    int err = stage_bitmap((const void*)skm_slotted_kernel, g, sep, nsep, dense,
-                           reinterpret_cast<uint32_t*>(st_lts + nt), s, &bm, &nbm);
+    int err = set_smem((const void*)skm_slotted_kernel, g);
     if (err) return err;
     skm_slotted_kernel<<<(unsigned)nt, THREADS, smem_bytes(g), s>>>(
-        static_cast<const uint32_t*>(packed), npk, bm, nbm, g, st_lts, ticket, S, n_tiles,
-        static_cast<uint32_t*>(out), ld, mr);
+        static_cast<const uint32_t*>(packed), npk, static_cast<const uint32_t*>(sep), nsep, g,
+        st_lts, ticket, S, n_tiles, static_cast<uint32_t*>(out), ld, mr);
     return (int)cudaGetLastError();
 }

@@ -5,9 +5,8 @@
 // body _winkeys_kernel), together with the unpack in front of it
 // (ops/sortcount.py::codes_from_chunk).  Input: the chunk the host ships,
 // 2-bit bases (base i at bits 2*(i%16) of word i/16) and the invalid
-// positions as a bitmap (bit i%32 of word i/32; a separator list is
-// scattered into one first, kseg::sep_bitmap).  Positions at or past L =
-// n + k - 1 are invalid whatever the chunk holds.  Per window t of k
+// positions as a bitmap (bit i%32 of word i/32).  Positions at or past
+// L = n + k - 1 are invalid whatever the chunk holds.  Per window t of k
 // positions: the big-endian 2-bit forward words, the reverse-complement
 // words, their lexicographic min (most significant word first, ties to
 // forward), and all-ones in EVERY word when any of the k positions is
@@ -16,8 +15,8 @@
 // merge lives there).
 //
 // What bounds it on the H100: bytes.  It writes 4W B per window (1.07 GB
-// at k=51, n = 2^26) and reads n/4 bytes of packed bases plus the
-// separators; the work per window is O(W), a few operations per word.
+// at k=51, n = 2^26) and reads n/4 bytes of packed bases plus n/8 of
+// bitmap; the work per window is O(W), a few operations per word.
 // Design (the identities of sortcount.window_keys_packed in the JAX
 // package): each block stages its TILE windows' packed words plus a
 // one-word halo on each side, and their bitmap words with prefix
@@ -146,22 +145,14 @@ winkeys_kernel(const uint32_t* __restrict__ packed, long long npk,
 
 using namespace k3;
 
-// Scratch (int64 words) the wrapper allocates: for a separator list, the
-// bitmap it is scattered into; none for a dense chunk.
-extern "C" long long kt_window_keys_scratch(long long L, int dense) {
-    return kseg::bitmap_scratch(L, dense);
-}
-
 // packed: u32 [npk] 2-bit bases, npk >= ceil(L / 16) with L = n + k - 1.
-// sep: the invalid positions, a u32 bitmap of nsep >= ceil(L / 32) words
-// (dense) or a u32 index list of nsep entries (indices >= L dropped).
-// out: W = ceil(k / 16) u32 columns of stride ld >= n.  scratch:
-// kt_window_keys_scratch int64s.  Returns a cudaError_t.
+// sep: the invalid positions, a u32 bitmap of nsep >= ceil(L / 32) words.
+// out: W = ceil(k / 16) u32 columns of stride ld >= n.  Returns a
+// cudaError_t.
 extern "C" int kt_window_keys(const void* packed, long long npk, const void* sep, long long nsep,
-                              int dense, long long n, int k, void* out, long long ld,
-                              void* scratch, void* stream) {
+                              long long n, int k, void* out, long long ld, void* stream) {
     const long long L = n + k - 1;
-    if (k < 2 || n < 0 || npk * 16 < L || nsep < 0 || (dense && nsep * 32 < L) || ld < n)
+    if (k < 2 || n < 0 || npk * 16 < L || nsep * 32 < L || ld < n)
         return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaSuccess;
     const Geo g = make_geo(k, n);
@@ -174,22 +165,8 @@ extern "C" int kt_window_keys(const void* packed, long long npk, const void* sep
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm)) !=
             cudaSuccess)
         return (int)e;
-    const uint32_t* bm = static_cast<const uint32_t*>(sep);
-    long long nbm = nsep;
-    if (!dense) {
-        uint32_t* built = static_cast<uint32_t*>(scratch);
-        if ((e = cudaMemsetAsync(built, 0, 8 * (size_t)kt_window_keys_scratch(L, 0), s)) !=
-            cudaSuccess)
-            return (int)e;
-        if (nsep > 0) {
-            kseg::sep_bitmap<<<fill_blocks(nsep, 256), 256, 0, s>>>(
-                static_cast<const uint32_t*>(sep), nsep, L, built);
-            if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-        }
-        bm = built;
-        nbm = (L + 31) / 32;
-    }
     winkeys_kernel<<<(unsigned)((n + TILE - 1) / TILE), THREADS, sm, s>>>(
-        static_cast<const uint32_t*>(packed), npk, bm, nbm, g, static_cast<uint32_t*>(out), ld);
+        static_cast<const uint32_t*>(packed), npk, static_cast<const uint32_t*>(sep), nsep, g,
+        static_cast<uint32_t*>(out), ld);
     return (int)cudaGetLastError();
 }

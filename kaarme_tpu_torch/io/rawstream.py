@@ -8,7 +8,7 @@ transfer chunks that the one-card sort-route counters' supersteps read.
 - ``CodeStream`` copies each block to the device on its own io stream
   and appends its codes to the device code stream there (P1).  Superstep
   s's chunk holds the codes at positions [s sb, s sb + sb + k - 1), as
-  ``sort_counter.pack_chunk``'s dense form of those codes.  The host
+  ``sort_counter.pack_chunk`` makes it of those codes.  The host
   learns that a chunk is complete only from the stream's code offset,
   read with a copy and an event on the io stream (a counted host sync,
   in the ``pack_wait`` span), and reads it only when the raw bytes

@@ -98,13 +98,13 @@ def bloom_pass1(cfg: BloomCounterConfig, chunks):
     def run(batch):
         nonlocal bf1, bf2, new1, new2
         with trace.span("pack", stats):
-            packed, sep, n, dense = pack_chunk(batch, cfg.tile * cfg.batch_tiles)
+            packed, sep, n = pack_chunk(batch, cfg.tile * cfg.batch_tiles)
         with trace.span("to_device", stats):
             packed_d, sep_d = to_device(packed, dev), to_device(sep, dev)
         with trace.span("dispatch", stats):
             bf1, bf2, n1, n2 = sortcount.bloom_pass1_superstep(
-                bf1, bf2, packed_d, sep_d, k=cfg.k, n=n, dense=dense, hfn=hfn,
-                kernels=cfg.kernels, scratch=scratch)
+                bf1, bf2, packed_d, sep_d, k=cfg.k, n=n, hfn=hfn, kernels=cfg.kernels,
+                scratch=scratch)
             new1 = new1 + n1
             new2 = new2 + n2
 
@@ -181,14 +181,14 @@ class _TwoPassBloom:
     def _superstep_kwargs(self) -> dict:
         return {"bloom": self.bf2, "hfn": self.hfn} if self._phase == 2 else {}
 
-    def _dispatch(self, packed_d, sep_d, n: int, dense: bool):
+    def _dispatch(self, words_d, bits_d, n: int):
         if self._phase != 1:
-            return super()._dispatch(packed_d, sep_d, n, dense)
+            return super()._dispatch(words_d, bits_d, n)
         if self.cfg.kernels == "cuda":
             self._scratch = cuda_bloom.scratch_for(n, self.device, self._scratch)
         self.bf1, self.bf2, n1, n2 = sortcount.bloom_pass1_superstep(
-            self.bf1, self.bf2, packed_d, sep_d, k=self.cfg.k, n=n, dense=dense,
-            hfn=self.hfn, kernels=self.cfg.kernels, scratch=self._scratch)
+            self.bf1, self.bf2, words_d, bits_d, k=self.cfg.k, n=n, hfn=self.hfn,
+            kernels=self.cfg.kernels, scratch=self._scratch)
         self._n12.append((n1, n2))
 
     def start_pass2(self):

@@ -5,8 +5,8 @@ table`` route).
 The host reads and encodes the input, cuts the code stream into fixed
 batches of ``batch_tiles`` tiles of ``tile`` windows (``TileBatcher``)
 and packs each batch's codes into the transfer chunk (2 bits per base
-plus separators, ``sort_counter.pack_chunk``); on the device K3 makes
-every window's canonical key from the chunk, and T1
+plus the separator bitmap, ``sort_counter.pack_chunk``); on the device
+K3 makes every window's canonical key from the chunk, and T1
 (``ops/table.insert``) accumulates the counts in an open-addressing
 table in device memory (``ops/table.count_step``).  A full table does not
 abort: the windows that found no slot within ``max_probes`` probes come
@@ -111,10 +111,10 @@ class KmerCounter(CountOutput):
     def _flush(self, batch: np.ndarray):
         cfg = self.cfg
         with trace.span("pack", self.stats):
-            packed, sep, n, dense = pack_chunk(batch, cfg.batch_windows)
+            packed, sep, n = pack_chunk(batch, cfg.batch_windows)
         with trace.span("to_device", self.stats):
             chunk = dict(packed=to_device(packed, self.device), sep=to_device(sep, self.device),
-                         k=cfg.k, n=n, dense=dense, kernels=cfg.kernels)
+                         k=cfg.k, n=n, kernels=cfg.kernels)
         with trace.span("dispatch", self.stats):
             self.tkeys, self.counts, overflow, pending = table_ops.count_step(
                 self.tkeys, self.counts, max_probes=cfg.max_probes, **chunk,

@@ -124,7 +124,7 @@ class SkmCounter(SortKmerCounter):
 
     # -- device steps ----------------------------------------------------------
 
-    def _dispatch(self, packed_d, sep_d, n: int, dense: bool):
+    def _dispatch(self, words_d, bits_d, n: int):
         """One superstep in the configured layout; ``step.eff`` is the
         dense merge mass, or None on the slotted layout."""
         cfg = self.cfg
@@ -132,17 +132,17 @@ class SkmCounter(SortKmerCounter):
         if cfg.segpack == "slotted":
             eff = None
             rows, maxruns = skm.skm_segpack_step(
-                packed_d, sep_d, k=cfg.k, n=n, S=self._S, dense=dense, kernels=cfg.kernels)
+                words_d, bits_d, k=cfg.k, n=n, S=self._S, kernels=cfg.kernels)
             new_prefix, ndv = skm.skm_merge_step(rows, maxruns, prefix_in,
                                                  kernels=cfg.kernels)
         else:
             cap = self._dense_cap(n)
             eff = self._dense_eff(n, cap)
             rows, rows_nd = skm.skm_segpack_dense_step(
-                packed_d, sep_d, k=cfg.k, n=n, cap=cap, dense=dense, kernels=cfg.kernels)
+                words_d, bits_d, k=cfg.k, n=n, cap=cap, kernels=cfg.kernels)
             new_prefix, ndv = skm.skm_merge_dense_step(
                 rows, rows_nd, prefix_in, eff=eff, kernels=cfg.kernels)
-        self._inflight.append((ndv, _Step(packed_d, sep_d, n, dense, eff, prefix_in)))
+        self._inflight.append((ndv, _Step(words_d, bits_d, n, eff, prefix_in)))
         self.prefix = new_prefix
         self._final_cache = None
 

@@ -3,11 +3,12 @@
 row per window) and the base of the super-k-mer counter.
 
 Each superstep ships as a transfer chunk: its code span packed to 2 bits
-per base plus its separators.  From FASTA and plain-text files the device
-makes the chunks itself: the raw bytes go to the card and P1 parses and
-packs them there (``count_file``, ``io/rawstream.py``).  Codes handed in
-(``add_codes``) and FASTQ files are packed on the host, on a worker
-thread, and copied to the device (pinned host memory, ``non_blocking``).
+per base plus the bitmap of its separators.  From FASTA and plain-text
+files the device makes the chunks itself: the raw bytes go to the card
+and P1 parses and packs them there (``count_file``,
+``io/rawstream.py``).  Codes handed in (``add_codes``) and FASTQ files
+are packed on the host, on a worker thread, and copied to the device
+(pinned host memory, ``non_blocking``).
 The device merges every superstep into a distinct store.  Dispatch is
 optimistic: superstep s+1 chains on s's unverified output and
 verification trails by up to ``_max_inflight`` supersteps; when a
@@ -37,7 +38,7 @@ from ..ops import sortcount, writer
 from ..utils import codec, trace
 from ..utils.device import resolve_device
 
-_Step = collections.namedtuple("_Step", "packed sep n dense eff prefix_in")
+_Step = collections.namedtuple("_Step", "words bits n eff prefix_in")
 
 
 def store_part(cols, nd: int):
@@ -73,14 +74,10 @@ def sized_store(store, rows: int) -> tuple:
 
 def pack_chunk(stream: np.ndarray, n: int):
     """The transfer chunk of an n-window span of codes (its n + k - 1
-    codes): (2-bit packed words, separators, n, dense).  Separators ship
-    as an index list unless they are denser than 1/32 of the positions,
-    where the n/8-byte bitmap is smaller."""
-    packed, maskw = fastio.pack_stream(stream)
-    seps = np.flatnonzero(stream >= 4).astype(np.uint32)
-    if seps.shape[0] <= max(n // 32, 32):
-        return packed, seps, n, False
-    return packed, maskw, n, True
+    codes): (2-bit packed words, the separator bitmap, n), the words and
+    bitmap of ``fastio.pack_stream``, as P1 writes them on the card."""
+    words, bits = fastio.pack_stream(stream)
+    return words, bits, n
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -280,7 +277,7 @@ class SortKmerCounter(SortedOutput):
 
     def _submit_all(self, chunks):
         for words, bits, n in chunks:
-            self._submit(words, bits, n, True)
+            self._submit(words, bits, n)
 
     # -- device steps ------------------------------------------------------
 
@@ -300,16 +297,16 @@ class SortKmerCounter(SortedOutput):
         them when ``final``, else all but the newest)."""
         while self._prepped and (final or len(self._prepped) > 1):
             with trace.span("pack_wait", self.stats):
-                packed, sep, n, dense = self._prepped.pop(0).result()
+                words, bits, n = self._prepped.pop(0).result()
             with trace.span("to_device", self.stats):
-                packed_d, sep_d = to_device(packed, self.device), to_device(sep, self.device)
-            self._submit(packed_d, sep_d, n, dense)
+                words_d, bits_d = to_device(words, self.device), to_device(bits, self.device)
+            self._submit(words_d, bits_d, n)
 
-    def _submit(self, packed_d, sep_d, n: int, dense: bool):
+    def _submit(self, words_d, bits_d, n: int):
         """Dispatch one superstep's transfer chunk, on the device."""
         self._drain(keep=self._max_inflight)
         with trace.span("dispatch", self.stats):
-            self._dispatch(packed_d, sep_d, n, dense)
+            self._dispatch(words_d, bits_d, n)
         trace.count("batches", stats=self.stats)
         self.stats["windows_processed"] += n
 
@@ -331,7 +328,7 @@ class SortKmerCounter(SortedOutput):
             eff = max(eff, self.prefix[0].shape[0])
         return eff
 
-    def _dispatch(self, packed_d, sep_d, n: int, dense: bool):
+    def _dispatch(self, words_d, bits_d, n: int):
         """Run one classic superstep, append (nd tensor, _Step) to
         ``_inflight`` and set ``self.prefix`` to the unverified output:
         merged (K4) under ``compactor="merge"``, else embedded when the
@@ -340,16 +337,16 @@ class SortKmerCounter(SortedOutput):
         cfg = self.cfg
         eb = sortcount.embed_bits(cfg.k)
         prefix_in = sized_store(self.prefix, self._eff_for_dispatch(n))
-        kw = dict(k=cfg.k, n=n, dense=dense, kernels=cfg.kernels, **self._superstep_kwargs())
+        kw = dict(k=cfg.k, n=n, kernels=cfg.kernels, **self._superstep_kwargs())
         if cfg.compactor == "merge":
-            new_prefix, ndv = sortcount.superstep_merged(packed_d, sep_d, prefix_in,
+            new_prefix, ndv = sortcount.superstep_merged(words_d, bits_d, prefix_in,
                                                          ebits=eb, **kw)
         elif eb >= 21:
-            new_prefix, ndv = sortcount.superstep_embedded(packed_d, sep_d, prefix_in,
+            new_prefix, ndv = sortcount.superstep_embedded(words_d, bits_d, prefix_in,
                                                            ebits=eb, **kw)
         else:
-            new_prefix, ndv = sortcount.superstep_plain(packed_d, sep_d, prefix_in, **kw)
-        self._inflight.append((ndv, _Step(packed_d, sep_d, n, dense, 0, prefix_in)))
+            new_prefix, ndv = sortcount.superstep_plain(words_d, bits_d, prefix_in, **kw)
+        self._inflight.append((ndv, _Step(words_d, bits_d, n, 0, prefix_in)))
         self.prefix = new_prefix
 
     def _superstep_kwargs(self) -> dict:
@@ -377,7 +374,7 @@ class SortKmerCounter(SortedOutput):
         with trace.span("replay", self.stats):
             for s in steps:
                 with trace.span("dispatch", self.stats):
-                    self._dispatch(s.packed, s.sep, s.n, s.dense)
+                    self._dispatch(s.words, s.bits, s.n)
                 self._drain(keep=0)
 
     def _drain(self, keep: int = 0):

@@ -89,25 +89,21 @@ def _compile(out: str, srcs) -> None:
 
 
 def _bind(lib):
-    lib.kt_skm_dense.argtypes = [_P, _I64, _P, _I64, _I32, _I64, _I32, _P, _I64, _I64, _P,
-                                 _P, _P]
+    lib.kt_skm_dense.argtypes = [_P, _I64, _P, _I64, _I64, _I32, _P, _I64, _I64, _P, _P, _P]
     lib.kt_skm_dense.restype = _I32
-    lib.kt_skm_dense_scratch.argtypes = [_I64, _I64, _I32]
+    lib.kt_skm_dense_scratch.argtypes = [_I64]
     lib.kt_skm_dense_scratch.restype = _I64
-    lib.kt_skm_slotted.argtypes = [_P, _I64, _P, _I64, _I32, _I64, _I32, _I32, _P, _I64, _P,
-                                   _P, _P]
+    lib.kt_skm_slotted.argtypes = [_P, _I64, _P, _I64, _I64, _I32, _I32, _P, _I64, _P, _P, _P]
     lib.kt_skm_slotted.restype = _I32
-    lib.kt_skm_slotted_scratch.argtypes = [_I64, _I64, _I32]
+    lib.kt_skm_slotted_scratch.argtypes = [_I64]
     lib.kt_skm_slotted_scratch.restype = _I64
     lib.kt_segsum_compact.argtypes = [_P, _P, _I64, _I32, _I32, _I32, _P, _I64,
                                       _I64, _P, _P, _P]
     lib.kt_segsum_compact.restype = _I32
     lib.kt_segsum_compact_scratch.argtypes = [_I64]
     lib.kt_segsum_compact_scratch.restype = _I64
-    lib.kt_window_keys.argtypes = [_P, _I64, _P, _I64, _I32, _I64, _I32, _P, _I64, _P, _P]
+    lib.kt_window_keys.argtypes = [_P, _I64, _P, _I64, _I64, _I32, _P, _I64, _P]
     lib.kt_window_keys.restype = _I32
-    lib.kt_window_keys_scratch.argtypes = [_I64, _I32]
-    lib.kt_window_keys_scratch.restype = _I64
     lib.kt_merge_compact.argtypes = [_P, _I64, _I64, _P, _P, _I64, _I64, _I32, _I32,
                                      _P, _I64, _I64, _P, _P, _P]
     lib.kt_merge_compact.restype = _I32

@@ -10,7 +10,7 @@ on CUDA tensors and runs the plain PyTorch version,
 
 Contract (both versions).  A code stream has global positions from 0; the
 chunk of superstep s holds positions [s sb, s sb + span), span = sb + k -
-1, as ``sort_counter.pack_chunk``'s dense form of those codes: int32
+1, as ``sort_counter.pack_chunk`` makes it of those codes: int32
 2-bit words (ceil(span / 16); base i at bits 2 (i % 16) of word i / 16)
 and int32 bitmap words (ceil(span / 32); bit i % 32 of word i / 32 set
 where position i holds code 4), zeroed before the stream reaches them.

@@ -13,13 +13,12 @@ the definitions from codes, ``run_rows_dense_torch`` and
 
 Dense contract (K1): the transfer chunk of an n-window superstep —
 ``packed`` int32 [>= ceil(L / 16)] 2-bit bases (base i at bits 2*(i%16)
-of word i/16) and ``sep``, the invalid positions as int32 indices (the
-separator list; entries outside [0, L) are dropped) or, with ``dense``,
-as an int32 [>= ceil(L / 32)] bitmap (bit i%32 of word i/32), L = n + k
-- 1; positions at or past L are invalid — to (Wc + 1 int32 columns of
-``cap`` rows: the span-masked content words and the meta word
-(ell-1) << 26 | 1 of every live run start, in stream order, then
-sentinels; int32 [rows_exact, rows_used]).  Its definition is
+of word i/16) and ``sep``, the invalid positions as an int32
+[>= ceil(L / 32)] bitmap (bit i%32 of word i/32), L = n + k - 1;
+positions at or past L are invalid whatever the chunk holds — to (Wc + 1
+int32 columns of ``cap`` rows: the span-masked content words and the
+meta word (ell-1) << 26 | 1 of every live run start, in stream order,
+then sentinels; int32 [rows_exact, rows_used]).  Its definition is
 ``run_rows_dense_torch(codes_from_chunk(packed, sep, ...))``, whose codes
 are int32 [L] (bits 0-1 base, bit 2 invalid).  rows_used == rows_exact;
 rows_used > cap means the capacity overflowed: the first ``cap`` rows
@@ -75,7 +74,7 @@ def _check_inputs(codes, k, n, cap):
         raise ValueError("cap must be >= 0")
 
 
-def _check_chunk(packed, sep, k, n, cap, dense):
+def _check_chunk(packed, sep, k, n, cap):
     if k < M:
         raise ValueError(f"skm segmentation requires k >= {M}")
     for name, t in (("packed", packed), ("sep", sep)):
@@ -86,31 +85,30 @@ def _check_chunk(packed, sep, k, n, cap, dense):
     L = n + k - 1
     if n < 1 or packed.shape[0] * 16 < L:
         raise ValueError(f"packed must hold n + k - 1 = {L} bases")
-    if dense and sep.shape[0] * 32 < L:
-        raise ValueError(f"the dense bitmap must cover n + k - 1 = {L} positions")
+    if sep.shape[0] * 32 < L:
+        raise ValueError(f"the separator bitmap must cover n + k - 1 = {L} positions")
     if cap < 0:
         raise ValueError("cap must be >= 0")
 
 
-def run_rows_dense(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, cap: int,
-                   dense: bool = False):
+def run_rows_dense(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, cap: int):
     """Dense run rows of an n-window stream straight from its transfer
     chunk (see the module docstring)."""
-    _check_chunk(packed, sep, k, n, cap, dense)
+    _check_chunk(packed, sep, k, n, cap)
     if packed.device.type == "cpu":
-        return run_rows_dense_plain(packed, sep, k=k, n=n, cap=cap, dense=dense)
+        return run_rows_dense_plain(packed, sep, k=k, n=n, cap=cap)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     out = torch.empty((content_words(k) + 1, cap), dtype=torch.int32, device=packed.device)
-    return launch_dense(packed, sep, k, n, out, cap, dense=dense)
+    return launch_dense(packed, sep, k, n, out, cap)
 
 
 def launch_dense(packed: torch.Tensor, sep: torch.Tensor, k: int, n: int, out: torch.Tensor,
-                 cap: int, *, dense: bool = False):
+                 cap: int):
     """Launch K1 into ``out`` ((Wc+1, ld) int32 on the card, ld >= cap):
     rows [0, cap) of every column are written, columns past ``cap`` are
     not touched.  Returns (the Wc+1 columns [:cap], rows)."""
-    _check_chunk(packed, sep, k, n, cap, dense)
+    _check_chunk(packed, sep, k, n, cap)
     if (out.dtype != torch.int32 or out.dim() != 2
             or out.shape[0] != content_words(k) + 1 or out.shape[1] < cap
             or out.stride(1) != 1 or out.device != packed.device):
@@ -120,11 +118,10 @@ def launch_dense(packed: torch.Tensor, sep: torch.Tensor, k: int, n: int, out: t
     dev = packed.device
     with torch.cuda.device(dev):
         lib = _build.lib()
-        scratch = torch.empty(lib.kt_skm_dense_scratch(n, n + k - 1, int(dense)),
-                              dtype=torch.int64, device=dev)
+        scratch = torch.empty(lib.kt_skm_dense_scratch(n), dtype=torch.int64, device=dev)
         rows = torch.empty(2, dtype=torch.int32, device=dev)
         err = lib.kt_skm_dense(
-            packed.data_ptr(), packed.shape[0], sep.data_ptr(), sep.shape[0], int(dense), n, k,
+            packed.data_ptr(), packed.shape[0], sep.data_ptr(), sep.shape[0], n, k,
             out.data_ptr(), cap, out.stride(0), scratch.data_ptr(), rows.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_skm_dense")
@@ -135,13 +132,11 @@ def launch_dense(packed: torch.Tensor, sep: torch.Tensor, k: int, n: int, out: t
 run_rows_dense.launches = 0
 
 
-def run_rows_dense_plain(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, cap: int,
-                         dense: bool = False):
+def run_rows_dense_plain(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, cap: int):
     """Plain PyTorch version of ``run_rows_dense``: the function's
     definition, ``codes_from_chunk`` then ``run_rows_dense_torch``."""
-    _check_chunk(packed, sep, k, n, cap, dense)
-    return run_rows_dense_torch(codes_from_chunk(packed, sep, k=k, n=n, dense=dense),
-                                k=k, n=n, cap=cap)
+    _check_chunk(packed, sep, k, n, cap)
+    return run_rows_dense_torch(codes_from_chunk(packed, sep, k=k, n=n), k=k, n=n, cap=cap)
 
 
 def _sliding_min(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -225,14 +220,13 @@ def _check_slots(S: int):
         raise ValueError(f"S must be in [1, {SLOT_TILE}], got {S}")
 
 
-def run_rows_slotted(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, S: int,
-                     dense: bool = False):
+def run_rows_slotted(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, S: int):
     """Slotted run rows of an n-window stream straight from its transfer
     chunk (see the module docstring)."""
-    _check_chunk(packed, sep, k, n, 0, dense)
+    _check_chunk(packed, sep, k, n, 0)
     _check_slots(S)
     if packed.device.type == "cpu":
-        return run_rows_slotted_plain(packed, sep, k=k, n=n, S=S, dense=dense)
+        return run_rows_slotted_plain(packed, sep, k=k, n=n, S=S)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     packed, sep = packed.contiguous(), sep.contiguous()
@@ -241,11 +235,10 @@ def run_rows_slotted(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int,
     with torch.cuda.device(dev):
         lib = _build.lib()
         out = torch.empty((content_words(k) + 1, R), dtype=torch.int32, device=dev)
-        scratch = torch.empty(lib.kt_skm_slotted_scratch(n, n + k - 1, int(dense)),
-                              dtype=torch.int64, device=dev)
+        scratch = torch.empty(lib.kt_skm_slotted_scratch(n), dtype=torch.int64, device=dev)
         maxruns = torch.empty(1, dtype=torch.int32, device=dev)
         err = lib.kt_skm_slotted(
-            packed.data_ptr(), packed.shape[0], sep.data_ptr(), sep.shape[0], int(dense), n, k,
+            packed.data_ptr(), packed.shape[0], sep.data_ptr(), sep.shape[0], n, k,
             S, out.data_ptr(), out.stride(0), scratch.data_ptr(), maxruns.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_skm_slotted")
@@ -256,13 +249,11 @@ def run_rows_slotted(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int,
 run_rows_slotted.launches = 0
 
 
-def run_rows_slotted_plain(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, S: int,
-                           dense: bool = False):
+def run_rows_slotted_plain(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int, S: int):
     """Plain PyTorch version of ``run_rows_slotted``: the function's
     definition, ``codes_from_chunk`` then ``run_rows_slotted_torch``."""
-    _check_chunk(packed, sep, k, n, 0, dense)
-    return run_rows_slotted_torch(codes_from_chunk(packed, sep, k=k, n=n, dense=dense),
-                                  k=k, n=n, S=S)
+    _check_chunk(packed, sep, k, n, 0)
+    return run_rows_slotted_torch(codes_from_chunk(packed, sep, k=k, n=n), k=k, n=n, S=S)
 
 
 def run_rows_slotted_torch(codes: torch.Tensor, *, k: int, n: int, S: int):

@@ -10,10 +10,9 @@ calls the definition from codes, ``window_keys_torch``.
 Chunk contract (``window_keys`` and ``window_keys_plain``): the transfer
 chunk of an n-window superstep — ``packed`` int32 [>= ceil(L / 16)]
 2-bit bases (base i at bits 2*(i%16) of word i/16) and ``sep``, the
-invalid positions as int32 indices (the separator list; entries outside
-[0, L) are dropped) or, with ``dense``, as an int32 [>= ceil(L / 32)]
-bitmap (bit i%32 of word i/32), L = n + k - 1; positions at or past L
-are invalid.
+invalid positions as an int32 [>= ceil(L / 32)] bitmap (bit i%32 of
+word i/32), L = n + k - 1; positions at or past L are invalid whatever
+the chunk holds.
 
 Codes contract (``window_keys_torch``): codes int32 [L >= n + k - 1]
 (bits 0-1 the base, any higher bit marks the position invalid, as
@@ -45,7 +44,7 @@ def _check_inputs(codes, k, n):
         raise ValueError(f"codes must hold n + k - 1 = {n + k - 1} positions")
 
 
-def _check_chunk(packed, sep, k, n, dense):
+def _check_chunk(packed, sep, k, n):
     if k < 2:
         raise ValueError("k must be >= 2")
     for name, t in (("packed", packed), ("sep", sep)):
@@ -56,17 +55,16 @@ def _check_chunk(packed, sep, k, n, dense):
     L = n + k - 1
     if n < 0 or packed.shape[0] * 16 < L:
         raise ValueError(f"packed must hold n + k - 1 = {L} bases")
-    if dense and sep.shape[0] * 32 < L:
-        raise ValueError(f"the dense bitmap must cover n + k - 1 = {L} positions")
+    if sep.shape[0] * 32 < L:
+        raise ValueError(f"the separator bitmap must cover n + k - 1 = {L} positions")
 
 
-def window_keys(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int,
-                dense: bool = False) -> tuple:
+def window_keys(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int) -> tuple:
     """Canonical window keys of an n-window superstep straight from its
     transfer chunk (see the module docstring)."""
-    _check_chunk(packed, sep, k, n, dense)
+    _check_chunk(packed, sep, k, n)
     if packed.device.type == "cpu":
-        return window_keys_plain(packed, sep, k=k, n=n, dense=dense)
+        return window_keys_plain(packed, sep, k=k, n=n)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     packed, sep = packed.contiguous(), sep.contiguous()
@@ -74,12 +72,9 @@ def window_keys(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int,
     with torch.cuda.device(dev):
         lib = _build.lib()
         out = torch.empty((words_per_kmer(k), n), dtype=torch.int32, device=dev)
-        scratch = torch.empty(lib.kt_window_keys_scratch(n + k - 1, int(dense)),
-                              dtype=torch.int64, device=dev)
         err = lib.kt_window_keys(
-            packed.data_ptr(), packed.shape[0], sep.data_ptr(), sep.shape[0], int(dense), n, k,
-            out.data_ptr(), out.stride(0), scratch.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            packed.data_ptr(), packed.shape[0], sep.data_ptr(), sep.shape[0], n, k,
+            out.data_ptr(), out.stride(0), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "kt_window_keys")
     window_keys.launches += 1
     return tuple(out.unbind(0))
@@ -88,13 +83,11 @@ def window_keys(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int,
 window_keys.launches = 0
 
 
-def window_keys_plain(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int,
-                      dense: bool = False) -> tuple:
+def window_keys_plain(packed: torch.Tensor, sep: torch.Tensor, *, k: int, n: int) -> tuple:
     """Plain PyTorch version of ``window_keys``: the function's
     definition, ``codes_from_chunk`` then ``window_keys_torch``."""
-    _check_chunk(packed, sep, k, n, dense)
-    return window_keys_torch(sortcount.codes_from_chunk(packed, sep, k=k, n=n, dense=dense),
-                             k, n)
+    _check_chunk(packed, sep, k, n)
+    return window_keys_torch(sortcount.codes_from_chunk(packed, sep, k=k, n=n), k, n)
 
 
 def window_keys_torch(codes: torch.Tensor, k: int, n: int) -> tuple:

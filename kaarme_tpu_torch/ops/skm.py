@@ -42,21 +42,19 @@ def supported(k: int) -> bool:
 # Superstep: segmentation (K1 or K5) and merge (sort + K2)
 # ---------------------------------------------------------------------------
 
-def skm_segpack_dense_step(packed, sep, *, k: int, n: int, cap: int,
-                           dense: bool = False, kernels: str = "cuda"):
+def skm_segpack_dense_step(packed, sep, *, k: int, n: int, cap: int, kernels: str = "cuda"):
     """Transfer chunk -> dense run rows (Wc+1 columns of ``cap`` rows)
     and int32 [rows_exact, rows_used]: K1 reads the chunk itself."""
     fn = cuda_skm.run_rows_dense_plain if kernels == "plain" else cuda_skm.run_rows_dense
-    return fn(packed, sep, k=k, n=n, cap=cap, dense=dense)
+    return fn(packed, sep, k=k, n=n, cap=cap)
 
 
-def skm_segpack_step(packed, sep, *, k: int, n: int, S: int, dense: bool = False,
-                     kernels: str = "cuda"):
+def skm_segpack_step(packed, sep, *, k: int, n: int, S: int, kernels: str = "cuda"):
     """Transfer chunk -> slotted run rows (Wc+1 columns of
     ceil(n / 512) * S rows) and int32 max_tile_runs: K5 reads the chunk
     itself."""
     fn = cuda_skm.run_rows_slotted_plain if kernels == "plain" else cuda_skm.run_rows_slotted
-    return fn(packed, sep, k=k, n=n, S=S, dense=dense)
+    return fn(packed, sep, k=k, n=n, S=S)
 
 
 def _merge_slotted(rows, extra, prefix, kernels: str):

@@ -39,7 +39,7 @@ def _unpack_bases(packed: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def unpack_codes(packed: torch.Tensor, maskwords: torch.Tensor, n: int) -> torch.Tensor:
-    """int32 [n] codes: base 0..3 in bits 0-1, bit 2 set where the dense
+    """int32 [n] codes: base 0..3 in bits 0-1, bit 2 set where the
     invalid bitmap marks the position."""
     x = _unpack_bases(packed, n)
     shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
@@ -47,22 +47,10 @@ def unpack_codes(packed: torch.Tensor, maskwords: torch.Tensor, n: int) -> torch
     return x | (m << 2)
 
 
-def unpack_codes_sparse(packed: torch.Tensor, sep_idx: torch.Tensor, n: int) -> torch.Tensor:
-    """int32 [n] codes with code 4 at every separator index.  Indices
-    outside [0, n) are dropped, as the reference's ``mode="drop"``
-    scatter drops its out-of-range padding."""
-    x = _unpack_bases(packed, n)
-    sep = sep_idx.to(torch.int64)
-    sep = sep[(sep >= 0) & (sep < n)]
-    x[sep] = 4
-    return x
-
-
-def codes_from_chunk(packed, sep, *, k: int, n: int, dense: bool) -> torch.Tensor:
-    """Transfer chunk (2-bit words + dense bitmap or separator list) ->
-    the n + k - 1 codes of an n-window superstep."""
-    L = n + k - 1
-    return unpack_codes(packed, sep, L) if dense else unpack_codes_sparse(packed, sep, L)
+def codes_from_chunk(packed, sep, *, k: int, n: int) -> torch.Tensor:
+    """Transfer chunk (2-bit words + separator bitmap) -> the n + k - 1
+    codes of an n-window superstep."""
+    return unpack_codes(packed, sep, n + k - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -204,8 +192,8 @@ def check_kernels(kernels: str):
         raise ValueError(f"kernels must be 'cuda' or 'plain', got {kernels!r}")
 
 
-def window_keys_from_chunk(packed, sep, *, k: int, n: int, dense: bool = False,
-                           kernels: str = "cuda", bloom=None, hfn: int = 0) -> tuple:
+def window_keys_from_chunk(packed, sep, *, k: int, n: int, kernels: str = "cuda",
+                           bloom=None, hfn: int = 0) -> tuple:
     """Transfer chunk -> the n canonical window keys, unsorted (W int32
     columns; invalid windows are all-ones): K3 straight from the chunk
     (``kernels="cuda"``), or the unpack then the plain K3 (``"plain"``).
@@ -218,17 +206,16 @@ def window_keys_from_chunk(packed, sep, *, k: int, n: int, dense: bool = False,
 
     check_kernels(kernels)
     if kernels == "cuda":
-        keys = cuda_winkeys.window_keys(packed, sep, k=k, n=n, dense=dense)
+        keys = cuda_winkeys.window_keys(packed, sep, k=k, n=n)
     else:
-        keys = cuda_winkeys.window_keys_torch(
-            codes_from_chunk(packed, sep, k=k, n=n, dense=dense), k, n)
+        keys = cuda_winkeys.window_keys_torch(codes_from_chunk(packed, sep, k=k, n=n), k, n)
     if bloom is not None:
         keys = bloom_gate(bloom, keys, hfn, kernels)
     return keys
 
 
 def superstep_embedded(packed, sep, prefix, *, k: int, n: int, ebits: int,
-                       dense: bool = False, kernels: str = "cuda", bloom=None, hfn: int = 0):
+                       kernels: str = "cuda", bloom=None, hfn: int = 0):
     """Classic superstep with the count embedded in the trailing key
     word's low ``ebits`` (>= 21): window keys (|1, a count of one) ++
     the prefix (its count ORed into its last word), one W-column sort,
@@ -238,15 +225,14 @@ def superstep_embedded(packed, sep, prefix, *, k: int, n: int, ebits: int,
     ``window_keys_from_chunk``."""
     w = len(prefix) - 1
     cap = prefix[0].shape[0]
-    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
-                                  bloom=bloom, hfn=hfn)
+    keys = window_keys_from_chunk(packed, sep, k=k, n=n, kernels=kernels, bloom=bloom, hfn=hfn)
     cols = [torch.cat([prefix[i], keys[i]]) for i in range(w - 1)]
     cols.append(torch.cat([prefix[w - 1] | prefix[-1], keys[w - 1] | 1]))
     return _kernel_finish(lexsort(cols, num_keys=w), cap, True, ebits, kernels)
 
 
-def superstep_plain(packed, sep, prefix, *, k: int, n: int, dense: bool = False,
-                    kernels: str = "cuda", bloom=None, hfn: int = 0):
+def superstep_plain(packed, sep, prefix, *, k: int, n: int, kernels: str = "cuda",
+                    bloom=None, hfn: int = 0):
     """Classic superstep for k without 21 free trailing-word bits: the
     count rides the sort as a separate column (not a sort key) and K2's
     full_sum mode sums each key's rows.  That is the reference's XLA
@@ -257,15 +243,14 @@ def superstep_plain(packed, sep, prefix, *, k: int, n: int, dense: bool = False,
     ``superstep_embedded``."""
     w = len(prefix) - 1
     cap = prefix[0].shape[0]
-    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
-                                  bloom=bloom, hfn=hfn)
+    keys = window_keys_from_chunk(packed, sep, k=k, n=n, kernels=kernels, bloom=bloom, hfn=hfn)
     cols = [torch.cat([prefix[i], keys[i]]) for i in range(w)]
     cnt = torch.cat([prefix[-1], torch.ones(n, dtype=torch.int32, device=prefix[-1].device)])
     return _kernel_finish(lexsort(cols + [cnt], num_keys=w), cap, False, 0, kernels)
 
 
 def superstep_merged(packed, sep, prefix, *, k: int, n: int, ebits: int = 0,
-                     dense: bool = False, kernels: str = "cuda", bloom=None, hfn: int = 0):
+                     kernels: str = "cuda", bloom=None, hfn: int = 0):
     """Linear-merge superstep (``--compactor merge``): sort only the n
     window keys, then merge them with the already sorted, dense prefix
     in one linear pass fused with the compaction (K4).  Embedded layout
@@ -277,8 +262,8 @@ def superstep_merged(packed, sep, prefix, *, k: int, n: int, ebits: int = 0,
     w = len(prefix) - 1
     cap = prefix[0].shape[0]
     embedded = ebits >= 21
-    keys = list(window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
-                                       bloom=bloom, hfn=hfn))
+    keys = list(window_keys_from_chunk(packed, sep, k=k, n=n, kernels=kernels, bloom=bloom,
+                                       hfn=hfn))
     if embedded:
         keys[w - 1] |= 1        # in place: the window keys are a fresh buffer
         a = torch.stack(list(prefix[:w - 1]) + [prefix[w - 1] | prefix[-1]])
@@ -313,8 +298,8 @@ def bloom_gate(bf2, keys, hfn: int, kernels: str = "cuda") -> tuple:
     return fn(bf2, keys, hfn)
 
 
-def bloom_pass1_superstep(bf1, bf2, packed, sep, *, k: int, n: int, dense: bool = False,
-                          hfn: int = 4, kernels: str = "cuda", scratch=None):
+def bloom_pass1_superstep(bf1, bf2, packed, sep, *, k: int, n: int, hfn: int = 4,
+                          kernels: str = "cuda", scratch=None):
     """Pass-1 superstep: window keys from the chunk (K3) -> BF1/BF2 insertion
     of every valid window's root hash, in place: B1 (``cuda_bloom.
     bloom_insert``, given ``scratch`` from ``cuda_bloom.scratch_for``) under
@@ -324,7 +309,7 @@ def bloom_pass1_superstep(bf1, bf2, packed, sep, *, k: int, n: int, dense: bool 
     host synchronisation on the kernel route."""
     from . import cuda_bloom
 
-    keys = window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels)
+    keys = window_keys_from_chunk(packed, sep, k=k, n=n, kernels=kernels)
     if kernels == "cuda":
         n1, n2 = cuda_bloom.bloom_insert(bf1, bf2, keys, hfn, scratch)
     else:

@@ -18,7 +18,7 @@ JAX package's probe rounds) on any device.  A full table does not abort: unresol
 serves ``find``, off the counting path.
 
 The counting step takes a batch as its transfer chunk (2-bit words and
-separators, ``models/sort_counter.pack_chunk``), whose window keys K3
+the separator bitmap, ``models/sort_counter.pack_chunk``), whose window keys K3
 makes as it does for the classic pipeline; an invalid window's key is
 all-ones in every word, which no canonical key is, so that is the
 validity mask, and the step hands T1 the key columns alone.  Valid
@@ -81,8 +81,8 @@ def lookup(tkeys, counts, keys, h, max_probes: int = 64) -> torch.Tensor:
     return out
 
 
-def count_step(tkeys, counts, packed, sep, *, k: int, n: int, dense: bool = False,
-               max_probes: int = 64, kernels: str = "cuda", bloom=None, hfn: int = 0):
+def count_step(tkeys, counts, packed, sep, *, k: int, n: int, max_probes: int = 64,
+               kernels: str = "cuda", bloom=None, hfn: int = 0):
     """One device step: a batch's transfer chunk -> its key columns (K3,
     ``sortcount.window_keys_from_chunk``; ``bloom``/``hfn``: keys that
     miss the Bloom filter come back all-ones too) -> insert (T1, which
@@ -90,7 +90,7 @@ def count_step(tkeys, counts, packed, sep, *, k: int, n: int, dense: bool = Fals
     0-d int32 tensor, pending): pending is the exact per-window
     unresolved mask, so a grow-and-retry re-inserts only what did not
     land."""
-    keys = sortcount.window_keys_from_chunk(packed, sep, k=k, n=n, dense=dense, kernels=kernels,
+    keys = sortcount.window_keys_from_chunk(packed, sep, k=k, n=n, kernels=kernels,
                                             bloom=bloom, hfn=hfn)
     tkeys, counts, pending, n_pending = insert(tkeys, counts, keys, max_probes=max_probes,
                                                kernels=kernels)

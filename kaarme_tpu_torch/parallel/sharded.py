@@ -163,11 +163,11 @@ class ShardedKmerCounter(CountOutput):
         n = cfg.tile * cfg.batch_tiles // self.ndev
         records = []
         for d, dev in enumerate(self.devices):
-            packed, sep, _, dense = pack_chunk(batch[d * n: (d + 1) * n + cfg.k - 1], n)
+            packed, sep, _ = pack_chunk(batch[d * n: (d + 1) * n + cfg.k - 1], n)
             with on_device(dev):
                 keys = sortcount.window_keys_from_chunk(
                     to_device(packed, dev), to_device(sep, dev), k=cfg.k, n=n,
-                    dense=dense, kernels=cfg.kernels)
+                    kernels=cfg.kernels)
                 valid = sortcount._is_sentinel_i32(keys) == 0
                 live = tuple(c[valid] for c in keys)
                 records.append(live + (torch.ones_like(live[0]),))

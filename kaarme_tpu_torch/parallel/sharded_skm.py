@@ -56,10 +56,10 @@ class ShardedSkmCounter(ShardedSortCounter):
         self.stats["slot_grow_events"] = 0
 
     def _superstep(self, chunk, prefix):
-        packed, sep, n, dense = chunk
+        words, bits, n = chunk
         kernels = self.cfg.kernels
-        rows, maxruns = skm.skm_segpack_step(packed, sep, k=self.cfg.k, n=n, S=self._S,
-                                             dense=dense, kernels=kernels)
+        rows, maxruns = skm.skm_segpack_step(words, bits, k=self.cfg.k, n=n, S=self._S,
+                                             kernels=kernels)
         return skm.skm_merge_step(rows, maxruns, prefix, kernels=kernels)
 
     def _slots_overflow(self, vals, rnd: _Round) -> bool:

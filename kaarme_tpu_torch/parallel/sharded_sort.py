@@ -157,8 +157,8 @@ class ShardedSortCounter(SortedOutput):
         when ``final``, else all but the newest)."""
         while self._prepped and (final or len(self._prepped) > 1):
             fut, n_real = self._prepped.pop(0)
-            chunks = [(to_device(p, dev), to_device(s, dev), n, dense)
-                      for (p, s, n, dense), dev in zip(fut.result(), self.devices)]
+            chunks = [(to_device(w, dev), to_device(b, dev), n)
+                      for (w, b, n), dev in zip(fut.result(), self.devices)]
             self._drain(keep=self._max_inflight - 1)
             self._dispatch(chunks)
             trace.count("batches", stats=self.stats)
@@ -171,14 +171,14 @@ class ShardedSortCounter(SortedOutput):
         ``compactor="merge"``, else embedded when the trailing key word
         has >= 21 free bits, else the separate-count superstep."""
         cfg = self.cfg
-        packed, sep, n, dense = chunk
+        words, bits, n = chunk
         eb = sortcount.embed_bits(cfg.k)
-        kw = dict(k=cfg.k, n=n, dense=dense, kernels=cfg.kernels)
+        kw = dict(k=cfg.k, n=n, kernels=cfg.kernels)
         if cfg.compactor == "merge":
-            return sortcount.superstep_merged(packed, sep, prefix, ebits=eb, **kw)
+            return sortcount.superstep_merged(words, bits, prefix, ebits=eb, **kw)
         if eb >= 21:
-            return sortcount.superstep_embedded(packed, sep, prefix, ebits=eb, **kw)
-        return sortcount.superstep_plain(packed, sep, prefix, **kw)
+            return sortcount.superstep_embedded(words, bits, prefix, ebits=eb, **kw)
+        return sortcount.superstep_plain(words, bits, prefix, **kw)
 
     def _dispatch(self, chunks):
         """Run every shard's superstep on its device and queue the round

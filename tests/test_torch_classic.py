@@ -25,9 +25,11 @@ N = 1 << 12          # windows per superstep
 CAP = 1 << 13        # store rows
 
 
-def _chunk(k, seed, dense):
+def _chunk(k, seed, ref_dense):
     """A superstep's transfer chunk: reads drawn from a short genome (so
-    keys repeat within and across chunks), separators every 61."""
+    keys repeat within and across chunks), separators every 61.  Returns
+    (words, bitmap, the separators for the JAX superstep: the bitmap, or
+    without ``ref_dense`` its padded separator list, valid windows)."""
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, 600).astype(np.uint8)
     codes = genome[rng.integers(0, 600 - 60, N // 60 + 2)[:, None] + np.arange(60)].reshape(-1)
@@ -35,14 +37,14 @@ def _chunk(k, seed, dense):
     codes[::61] = 4
     packed, maskw = ref_sc.pack_stream_np(codes)
     seps = np.flatnonzero(codes >= 4).astype(np.uint32)
-    sep = maskw if dense else np.concatenate([seps, np.full(9, codes.shape[0], np.uint32)])
+    ref_sep = maskw if ref_dense else np.concatenate([seps, np.full(9, codes.shape[0], np.uint32)])
     inv = np.concatenate([[0], np.cumsum(codes >= 4)])
-    return packed, sep, int(((inv[k:k + N] - inv[:N]) == 0).sum())
+    return packed, maskw, ref_sep, int(((inv[k:k + N] - inv[:N]) == 0).sum())
 
 
-def _port_step(variant, packed, sep, prefix, k, dense):
+def _port_step(variant, packed, sep, prefix, k):
     t = lambda a: torch.from_numpy(a.view(np.int32))
-    kw = dict(k=k, n=N, dense=dense, kernels="cuda")
+    kw = dict(k=k, n=N, kernels="cuda")
     if variant == "merged":
         return sortcount.superstep_merged(t(packed), t(sep), prefix,
                                           ebits=sortcount.embed_bits(k), **kw)
@@ -69,22 +71,24 @@ def _live(cols, ndu):
     return arr[arr[:, -1] > 0]
 
 
-@pytest.mark.parametrize("k,variant,dense", [
+@pytest.mark.parametrize("k,variant,ref_dense", [
     (13, "plain", False), (31, "plain", True), (51, "embedded", False),
     (13, "merged", False), (51, "merged", True)])
-def test_superstep_matches_reference(k, variant, dense):
+def test_superstep_matches_reference(k, variant, ref_dense):
     """Superstep 2 of a stream (superstep 1, on the port, fills the
-    prefix) on both packages from the same prefix."""
+    prefix) on both packages from the same prefix: the port's from the
+    bitmap, the JAX package's from its bitmap (``ref_dense``) or its
+    separator list."""
     W = codec.words_per_kmer(k)
-    p1, s1, _ = _chunk(k, 1, dense)
-    prefix, nd1 = _port_step(variant, p1, s1, sortcount.make_store(CAP, W, "cpu"), k, dense)
+    p1, b1, _, _ = _chunk(k, 1, ref_dense)
+    prefix, nd1 = _port_step(variant, p1, b1, sortcount.make_store(CAP, W, "cpu"), k)
     assert 0 < int(nd1[0]) < CAP
-    p2, s2, valid = _chunk(k, 2, dense)
-    got, ndv = _port_step(variant, p2, s2, prefix, k, dense)
+    p2, b2, s2, valid = _chunk(k, 2, ref_dense)
+    got, ndv = _port_step(variant, p2, b2, prefix, k)
     nd, ndu = ndv.tolist()
     assert nd == ndu <= CAP
     ref_prefix = tuple(jnp.asarray(c) for c in convert.columns_to_numpy(prefix))
-    ref, rnd = _ref_step(variant, p2, s2, ref_prefix, k, dense)
+    ref, rnd = _ref_step(variant, p2, s2, ref_prefix, k, ref_dense)
     assert nd == int(np.asarray(rnd)[0])
     mine = _live(convert.columns_to_numpy(got), nd)
     assert mine.shape[0] == nd

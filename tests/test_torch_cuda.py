@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from chunk_noise import noisy_tail
 from kaarme_tpu_torch import cli
 from kaarme_tpu_torch.io import fastio
 from kaarme_tpu_torch.ops import cuda_compact, cuda_merge, cuda_skm, cuda_winkeys, sortcount
@@ -34,11 +35,12 @@ def _codes(n, k, seed):
 
 
 def _chunk(n, k, seed, no_sep=False):
-    """The transfer chunk K1 reads: packed 2-bit words (random bases under
-    the invalid positions too), the separator list (with entries outside
-    [0, L) that are dropped, one negative as int32) and the dense bitmap.
-    A poly-A stretch without separators keeps one minimizer over several
-    tiles, so the LMAX cap is anchored at a TRUE start tiles back."""
+    """The transfer chunk K1, K3 and K5 read: packed 2-bit words (random
+    bases under the invalid positions too) and the bitmap, with one more
+    word of each and random bases and bits at and past L (``noisy_tail``),
+    which the kernels must ignore as the plain versions do.  A poly-A
+    stretch without separators keeps one minimizer over several tiles, so
+    the LMAX cap is anchored at a TRUE start tiles back."""
     rng = np.random.default_rng(seed)
     L = n + k - 1
     bases = rng.integers(0, 4, L).astype(np.uint8)
@@ -50,8 +52,7 @@ def _chunk(n, k, seed, no_sep=False):
     bases[5000:9000] = 0
     packed, _ = fastio.pack_stream_np(bases)
     _, mask = fastio.pack_stream_np(inv.astype(np.uint8) * 4)
-    sep = np.concatenate([np.flatnonzero(inv), [L, L + 9, 0xFFFFFFF0]]).astype(np.uint32)
-    return packed, sep, mask
+    return noisy_tail(packed, mask, L, seed)
 
 
 def _dev(a, dev):
@@ -59,17 +60,15 @@ def _dev(a, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
 @pytest.mark.parametrize("k,n", [(16, 5000), (31, 1 << 15), (51, 1 << 20), (51, 777),
                                  (101, 100_003), (201, 30_001)])
-def test_k1_kernel_equals_plain(dev, k, n, dense):
-    """From the chunk, in both formats; n = 777 is a tail shorter than a
-    tile."""
-    packed, sep, mask = _chunk(n, k, seed=k)
-    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
+def test_k1_kernel_equals_plain(dev, k, n):
+    """From the chunk; n = 777 is a tail shorter than a tile."""
+    packed, mask = _chunk(n, k, seed=k)
+    p, s = _dev(packed, dev), _dev(mask, dev)
     for cap in (n // 4, 1024, 0):
-        got = cuda_skm.run_rows_dense(p, s, k=k, n=n, cap=cap, dense=dense)
-        want = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=cap, dense=dense)
+        got = cuda_skm.run_rows_dense(p, s, k=k, n=n, cap=cap)
+        want = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=cap)
         torch.cuda.synchronize()
         assert torch.equal(got[1], want[1])
         for a, b in zip(got[0], want[0]):
@@ -77,14 +76,12 @@ def test_k1_kernel_equals_plain(dev, k, n, dense):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
-def test_k1_chunk_without_separators(dev, dense):
+def test_k1_chunk_without_separators(dev):
     k, n = 51, 70_001
-    packed, sep, mask = _chunk(n, k, seed=2, no_sep=True)
-    sep = sep[:0]
-    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
-    got = cuda_skm.run_rows_dense(p, s, k=k, n=n, cap=n, dense=dense)
-    want = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=n, dense=dense)
+    packed, mask = _chunk(n, k, seed=2, no_sep=True)
+    p, s = _dev(packed, dev), _dev(mask, dev)
+    got = cuda_skm.run_rows_dense(p, s, k=k, n=n, cap=n)
+    want = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=n)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1]) and int(want[1][0]) > 0
     for a, b in zip(got[0], want[0]):
@@ -92,28 +89,27 @@ def test_k1_chunk_without_separators(dev, dense):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
-def test_k1_writes_nothing_past_cap(dev, dense):
+def test_k1_writes_nothing_past_cap(dev):
     k, n = 51, 1 << 18
-    packed, sep, mask = _chunk(n, k, seed=5)
-    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
-    _, rows = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=0, dense=dense)
+    packed, mask = _chunk(n, k, seed=5)
+    p, s = _dev(packed, dev), _dev(mask, dev)
+    _, rows = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=0)
     cap = int(rows[0]) // 2
     out = torch.full((cuda_skm.content_words(k) + 1, cap + 333), 77, dtype=torch.int32,
                      device=dev)
-    cols, r = cuda_skm.launch_dense(p, s, k, n, out, cap, dense=dense)
+    cols, r = cuda_skm.launch_dense(p, s, k, n, out, cap)
     torch.cuda.synchronize()
     assert r.tolist() == rows.tolist()
     assert bool((out[:, cap:] == 77).all())
-    want, _ = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=cap, dense=dense)
+    want, _ = cuda_skm.run_rows_dense_plain(p, s, k=k, n=n, cap=cap)
     for a, b in zip(cols, want):
         assert torch.equal(a, b)
 
 
-def _k5_equal(dev, packed, s, k, n, S, dense):
+def _k5_equal(dev, packed, s, k, n, S):
     p, s = _dev(packed, dev), _dev(s, dev)
-    got = cuda_skm.run_rows_slotted(p, s, k=k, n=n, S=S, dense=dense)
-    want = cuda_skm.run_rows_slotted_plain(p, s, k=k, n=n, S=S, dense=dense)
+    got = cuda_skm.run_rows_slotted(p, s, k=k, n=n, S=S)
+    want = cuda_skm.run_rows_slotted_plain(p, s, k=k, n=n, S=S)
     torch.cuda.synchronize()
     assert int(got[1]) == int(want[1])
     assert len(got[0]) == len(want[0]) == cuda_skm.content_words(k) + 1
@@ -124,26 +120,24 @@ def _k5_equal(dev, packed, s, k, n, S, dense):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
 @pytest.mark.parametrize("k,n,S", [(16, 5000, 96), (31, 1 << 15, 16), (51, 1 << 20, 96),
                                    (51, 777, 8), (101, 100_003, 512), (17, 1 << 16, 4)])
-def test_k5_kernel_equals_plain(dev, k, n, S, dense):
-    """From the chunk, in both formats: slotted rows and max_tile_runs
-    bit for bit; n = 777 and 100,003 end in a partial slot tile, and S =
-    4 (and 8, 16) overflow: the same rows are dropped.  The chunk's
-    poly-A stretch keeps one minimizer across tiles."""
-    packed, sep, mask = _chunk(n, k, seed=k + S, no_sep=S == 4)   # S = 4: minimizer churn
-    most = _k5_equal(dev, packed, mask if dense else sep, k, n, S, dense)
+def test_k5_kernel_equals_plain(dev, k, n, S):
+    """From the chunk: slotted rows and max_tile_runs bit for bit; n = 777
+    and 100,003 end in a partial slot tile, and S = 4 (and 8, 16)
+    overflow: the same rows are dropped.  The chunk's poly-A stretch keeps
+    one minimizer across tiles."""
+    packed, mask = _chunk(n, k, seed=k + S, no_sep=S == 4)   # S = 4: minimizer churn
+    most = _k5_equal(dev, packed, mask, k, n, S)
     if S <= 16:
         assert most > S
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
-def test_k5_chunk_without_separators(dev, dense):
+def test_k5_chunk_without_separators(dev):
     k, n = 51, 70_001
-    packed, sep, mask = _chunk(n, k, seed=2, no_sep=True)
-    assert _k5_equal(dev, packed, mask if dense else sep[:0], k, n, 96, dense) > 0
+    packed, mask = _chunk(n, k, seed=2, no_sep=True)
+    assert _k5_equal(dev, packed, mask, k, n, 96) > 0
 
 
 @pytest.mark.cuda
@@ -240,19 +234,17 @@ def test_k2_kernel_equals_plain(dev, W, N, embedded):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
 @pytest.mark.parametrize("k,n", [(2, 100), (13, 1 << 16), (16, 4097), (17, 2049), (31, 1023),
                                  (51, 1 << 20), (51, 100_003), (201, 3001), (49_200, 37)])
-def test_k3_kernel_equals_plain(dev, k, n, dense):
-    """From the chunk, in both formats (the separator list with entries
-    past L and one negative); n = 4097, 2049, 100,003 end in a partial
-    tile of 2048 windows.  k=49,200 stages ~25 KB of chunk per tile; its
-    plain version runs on the CPU (tens of thousands of tiny ops)."""
-    packed, sep, mask = _chunk(n, k, seed=k + n)
-    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
-    got = cuda_winkeys.window_keys(p, s, k=k, n=n, dense=dense)
+def test_k3_kernel_equals_plain(dev, k, n):
+    """From the chunk; n = 4097, 2049, 100,003 end in a partial tile of
+    2048 windows.  k=49,200 stages ~25 KB of chunk per tile; its plain
+    version runs on the CPU (tens of thousands of tiny ops)."""
+    packed, mask = _chunk(n, k, seed=k + n)
+    p, s = _dev(packed, dev), _dev(mask, dev)
+    got = cuda_winkeys.window_keys(p, s, k=k, n=n)
     where = (lambda t: t.cpu()) if k > 1000 else (lambda t: t)
-    want = cuda_winkeys.window_keys_plain(where(p), where(s), k=k, n=n, dense=dense)
+    want = cuda_winkeys.window_keys_plain(where(p), where(s), k=k, n=n)
     torch.cuda.synchronize()
     assert len(got) == len(want) == -(-k // 16)
     for a, b in zip(got, want):
@@ -260,24 +252,23 @@ def test_k3_kernel_equals_plain(dev, k, n, dense):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
 @pytest.mark.parametrize("route", ["embedded", "plain", "merged_k51", "merged_k13", "bloom_pass1"])
-def test_classic_superstep_does_not_unpack(dev, monkeypatch, route, dense):
+def test_classic_superstep_does_not_unpack(dev, monkeypatch, route):
     """The classic supersteps and -b pass 1 on the kernel route never
-    reach the unpack: ``codes_from_chunk`` (and the unpack helpers)
+    reach the unpack: ``codes_from_chunk`` (and the unpack helper)
     raise, and the result equals the plain route's, which unpacks."""
     from kaarme_tpu_torch.ops import bloom
 
     k = 13 if route in ("plain", "merged_k13") else 51
     n = 100_000
-    packed, sep, mask = _chunk(n, k, seed=len(route))
-    p, s = _dev(packed, dev), _dev(mask if dense else sep, dev)
+    packed, mask = _chunk(n, k, seed=len(route))
+    p, s = _dev(packed, dev), _dev(mask, dev)
     W = -(-k // 16)
     eb = sortcount.embed_bits(k)
 
     def step(kernels):
         prefix = sortcount.make_store(1 << 17, W, dev)
-        kw = dict(k=k, n=n, dense=dense, kernels=kernels)
+        kw = dict(k=k, n=n, kernels=kernels)
         if route == "embedded":
             return sortcount.superstep_embedded(p, s, prefix, ebits=eb, **kw)
         if route == "plain":
@@ -292,7 +283,7 @@ def test_classic_superstep_does_not_unpack(dev, monkeypatch, route, dense):
     def boom(*a, **kw):
         raise AssertionError("the kernel route unpacked the chunk")
 
-    for name in ("codes_from_chunk", "unpack_codes", "unpack_codes_sparse"):
+    for name in ("codes_from_chunk", "unpack_codes"):
         monkeypatch.setattr(sortcount, name, boom)
     cuda_winkeys.window_keys.launches = 0
     got = step("cuda")
@@ -777,11 +768,11 @@ def test_table_count_step_hashes_on_card(dev, k):
 
     n = 1 << 14
     flat = _codes(n, k, seed=k).clip(0, 4).astype(np.uint8)
-    packed, sep, m, dense = sort_counter.pack_chunk(flat, n)
+    words, bits, m = sort_counter.pack_chunk(flat, n)
     out = []
     for kernels in ("cuda", "plain"):
-        chunk = dict(packed=sort_counter.to_device(packed, dev),
-                     sep=sort_counter.to_device(sep, dev), k=k, n=m, dense=dense)
+        chunk = dict(packed=sort_counter.to_device(words, dev),
+                     sep=sort_counter.to_device(bits, dev), k=k, n=m)
         hashing.hash_words.calls = 0
         cuda_table.table_insert.launches = cuda_winkeys.window_keys.launches = 0
         tk, cn, ov, pend = table.count_step(*table.make_table(16, (k + 15) // 16, dev),
@@ -1009,7 +1000,7 @@ def test_cli_writes_through_w1(dev, tmp_path, extra):
 
 
 def _read_chunk(n, k, seed, genome_len, poly_a=False):
-    """The transfer chunk (2-bit words, dense bitmap) of n windows of reads
+    """The transfer chunk (2-bit words, bitmap) of n windows of reads
     of max(150, 2k) bases sampled (from ``seed``) from one random genome of
     ``genome_len`` bases, a separator after each read; ``poly_a``: n + k -
     1 A's, no separator."""
@@ -1055,7 +1046,7 @@ def test_b1_equals_plain(dev, case):
     cuda_bloom.bloom_insert.launches = 0
     for b in range(3):
         packed, mask = _read_chunk(n, k, seed=b, genome_len=glen, poly_a=case == "poly_a")
-        keys = cuda_winkeys.window_keys(_dev(packed, dev), _dev(mask, dev), k=k, n=n, dense=True)
+        keys = cuda_winkeys.window_keys(_dev(packed, dev), _dev(mask, dev), k=k, n=n)
         torch.cuda.set_sync_debug_mode("error")
         try:
             got = cuda_bloom.bloom_insert(kf[0], kf[1], keys, 7, scratch)
@@ -1094,7 +1085,7 @@ def test_b1_one_scratch_over_batches(dev, case):
         if case == "epoch_wrap" and b == 3:
             scratch.epoch = cuda_bloom.EPOCH_MAX - 2
         packed, mask = _read_chunk(n, k, seed=seed, genome_len=glen, poly_a=b % 50 == 49)
-        keys = cuda_winkeys.window_keys(_dev(packed, dev), _dev(mask, dev), k=k, n=n, dense=True)
+        keys = cuda_winkeys.window_keys(_dev(packed, dev), _dev(mask, dev), k=k, n=n)
         torch.cuda.set_sync_debug_mode("error")
         try:
             got = cuda_bloom.bloom_insert(kf[0], kf[1], keys, 7, scratch)
@@ -1126,7 +1117,7 @@ def test_b2_equals_plain(dev, case, layout):
     bf1, bf2 = bloom.make_bloom(bits, dev), bloom.make_bloom(bits, dev)
     batches = [_read_chunk(n, k, seed=b, genome_len=glen, poly_a=case == "poly_a")
                for b in range(2)]
-    keys = [cuda_winkeys.window_keys(_dev(p, dev), _dev(m, dev), k=k, n=n, dense=True)
+    keys = [cuda_winkeys.window_keys(_dev(p, dev), _dev(m, dev), k=k, n=n)
             for p, m in batches]
     cuda_bloom.bloom_insert(bf1, bf2, keys[0], 7)
     cuda_bloom.bloom_insert(bf1, bf2, keys[0], 7)      # every key of batch 0 in BF2

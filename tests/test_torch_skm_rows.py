@@ -2,18 +2,21 @@
 JAX package: the plain version (what the CPU runs) against
 ``pallas_skm.run_rows_dense_pallas(interpret=True)`` and the NumPy
 mirror ``skm.run_rows_np`` — from codes, and from the transfer chunk
-(packed 2-bit words plus a separator list or a dense bitmap) that the
-wrapper takes, against the JAX package's ``unpack_codes_sparse`` /
-``unpack_codes`` followed by the Pallas kernel.  Every quantity is an
+(packed 2-bit words plus the separator bitmap) that the wrapper takes,
+against the JAX package's ``unpack_codes`` followed by the Pallas
+kernel.  Every quantity is an
 integer, so the tolerance is 0.  The CUDA kernel itself is compared with
 the plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py."""
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
+from chunk_noise import noisy_tail
 from kaarme_tpu.ops import pallas_skm, skm
 from kaarme_tpu.ops import sortcount as ref_sc
 from kaarme_tpu_torch.io import fastio
@@ -33,15 +36,13 @@ def _codes(n, k, seed, sep_every=151):
 
 def _chunk(c_u8, seed):
     """The transfer chunk of a code stream: packed words with random bases
-    under the invalid positions too (they must not matter), the separator
-    list with entries outside [0, L) that must be dropped (the last one
-    negative as int32), and the dense bitmap."""
+    under the invalid positions too (they must not matter), and the
+    bitmap."""
     L = c_u8.shape[0]
     bases = np.where(c_u8 >= 4, np.random.default_rng(seed).integers(0, 4, L), c_u8)
     packed, _ = fastio.pack_stream_np(bases.astype(np.uint8))
     _, mask = fastio.pack_stream_np(c_u8)
-    sep = np.concatenate([np.flatnonzero(c_u8 >= 4), [L, L + 77, 0xFFFFFFF0]]).astype(np.uint32)
-    return packed, sep, mask
+    return packed, mask
 
 
 def _t(a):
@@ -82,26 +83,34 @@ def test_plain_k1_matches_pallas_and_mirror(k, n):
     assert _mirror_dict(arr[:exact]) == skm.run_rows_np(c_u8, k, n)
 
 
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
-@pytest.mark.parametrize("k,n", [(31, 1 << 15), (51, 1 << 15)])
-def test_chunk_k1_matches_jax_unpack_and_pallas(k, n, dense):
-    """The wrapper on CPU tensors, from the chunk, against the JAX
-    package's unpack of the same chunk and its Pallas kernel; L = n + k - 1
-    is no multiple of 16 or 32."""
-    c_u8, _ = _codes(n, k, seed=11)
-    packed, sep, mask = _chunk(c_u8, seed=k)
-    L = n + k - 1
-    if dense:
-        ref_codes = ref_sc.unpack_codes(jnp.asarray(packed), jnp.asarray(mask), L)
-    else:
-        ref_codes = ref_sc.unpack_codes_sparse(jnp.asarray(packed), jnp.asarray(sep), L)
-    cap = n // 4
+@functools.lru_cache(maxsize=None)
+def _jax_chunk_rows(k, n, cap):
+    """The JAX package's unpack of the clean chunk of ``_codes(n, k, 11)``
+    and its Pallas kernel (interpret mode): (live rows, rows_exact), made
+    once for the ``noisy_tail`` and ``dense`` cases below."""
+    packed, mask = _chunk(_codes(n, k, seed=11)[0], seed=k)
+    ref_codes = ref_sc.unpack_codes(jnp.asarray(packed), jnp.asarray(mask), n + k - 1)
     cols, ndv = pallas_skm.run_rows_dense_pallas(ref_codes, k=k, n=n, cap=cap, interpret=True)
     ref = np.stack([np.asarray(c) for c in cols], 1)
-    ref_live = ref[ref[:, -1] != SENT]
-    arr, (exact, used) = _rows(*cuda_skm.run_rows_dense(
-        _t(packed), _t(mask if dense else sep), k=k, n=n, cap=cap, dense=dense))
-    assert exact == used == int(ndv[0]) == ref_live.shape[0]
+    return ref[ref[:, -1] != SENT], int(ndv[0])
+
+
+@pytest.mark.parametrize("noisy", [True, False], ids=["noisy_tail", "dense"])
+@pytest.mark.parametrize("k,n", [(31, 1 << 15), (51, 1 << 15)])
+def test_chunk_k1_matches_jax_unpack_and_pallas(k, n, noisy):
+    """The wrapper on CPU tensors, from the chunk, against the JAX
+    package's unpack of the same chunk and its Pallas kernel; L = n + k - 1
+    is no multiple of 16 or 32.  ``noisy_tail``: the wrapper reads the
+    chunk with random bases and bitmap bits at and past L, the reference
+    the clean one."""
+    c_u8, _ = _codes(n, k, seed=11)
+    packed, mask = _chunk(c_u8, seed=k)
+    cap = n // 4
+    ref_live, ref_exact = _jax_chunk_rows(k, n, cap)
+    if noisy:
+        packed, mask = noisy_tail(packed, mask, n + k - 1, seed=k)
+    arr, (exact, used) = _rows(*cuda_skm.run_rows_dense(_t(packed), _t(mask), k=k, n=n, cap=cap))
+    assert exact == used == ref_exact == ref_live.shape[0]
     np.testing.assert_array_equal(arr[:exact], ref_live)
     assert (arr[exact:] == SENT).all()
 
@@ -109,14 +118,13 @@ def test_chunk_k1_matches_jax_unpack_and_pallas(k, n, dense):
 @pytest.mark.parametrize("k,n", [(16, 3000), (51, 777), (101, 4096)])
 def test_plain_k1_any_n_matches_mirror(k, n):
     """The port takes any n (no block alignment) and any k >= 16, from
-    codes and from the chunk in both formats."""
+    codes and from the chunk, clean and with a noisy tail."""
     c_u8, c32 = _codes(n, k, seed=n, sep_every=97)
     arr, (exact, _) = _port(c32, k, n, 1 << 13)
     assert _mirror_dict(arr[:exact]) == skm.run_rows_np(c_u8, k, n)
-    packed, sep, mask = _chunk(c_u8, seed=n)
-    for dense, s in ((False, sep), (True, mask)):
-        got, rows = _rows(*cuda_skm.run_rows_dense(_t(packed), _t(s), k=k, n=n, cap=1 << 13,
-                                                   dense=dense))
+    packed, mask = _chunk(c_u8, seed=n)
+    for p, m in ((packed, mask), noisy_tail(packed, mask, n + k - 1, seed=n)):
+        got, rows = _rows(*cuda_skm.run_rows_dense(_t(p), _t(m), k=k, n=n, cap=1 << 13))
         assert rows == [exact, exact]
         np.testing.assert_array_equal(got, arr)
 
@@ -140,6 +148,6 @@ def test_k1_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="bases"):
         cuda_skm.run_rows_dense(packed, sep, k=31, n=40, cap=8)
     with pytest.raises(ValueError, match="bitmap"):
-        cuda_skm.run_rows_dense(packed, sep[:1], k=31, n=20, cap=8, dense=True)
+        cuda_skm.run_rows_dense(packed, sep[:1], k=31, n=20, cap=8)
     with pytest.raises(ValueError, match="int32"):
         cuda_skm.run_rows_dense(packed.long(), sep, k=31, n=20, cap=8)

@@ -1,8 +1,8 @@
 """K5 (slotted run segmentation) of the PyTorch port, held exactly to
 the JAX package: the wrapper on CPU tensors (its plain version, what the
 CPU runs), fed the transfer chunk as the counter ships it
-(``fastio.pack_stream_np``: packed 2-bit words and the separator list,
-or the dense bitmap), against the reference's ``run_rows`` +
+(``fastio.pack_stream_np``: packed 2-bit words and the separator
+bitmap), against the reference's ``run_rows`` +
 ``pack_slots`` and against ``pallas_skm.run_rows_slotted_pallas
 (interpret=True)``, on the cases of tests/test_pallas_skm.py, plus an
 unaligned tail against the NumPy mirror ``skm.run_rows_np``.  Every
@@ -10,12 +10,15 @@ quantity is an integer, so the tolerance is 0.  The CUDA kernel itself
 is compared with the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
 from bench import make_reads
+from chunk_noise import noisy_tail
 from kaarme_tpu.ops import pallas_skm, skm, sortcount
 from kaarme_tpu_torch.io import fastio
 from kaarme_tpu_torch.ops import cuda_skm
@@ -44,23 +47,20 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
 
-def _port(codes, k, n, S, fmt="sparse"):
-    """The wrapper from the chunk of ``codes``: the separator list
-    ("sparse"), the dense bitmap ("dense"), or ("out_of_range") a list
-    with entries past L that must be dropped (the last one negative as
-    int32) over packed words holding random bases at the invalid
-    positions, which must not matter."""
+def _port(codes, k, n, S, noisy=False):
+    """The wrapper from the chunk of ``codes``; ``noisy``: with random
+    bases at the invalid positions and random bases and bitmap bits at
+    and past L (``noisy_tail``), which must not matter."""
     L = codes.shape[0]
+    _, mask = fastio.pack_stream_np(codes)
     bases = codes
-    if fmt == "out_of_range":
+    if noisy:
         noise = np.random.default_rng(L).integers(0, 4, L).astype(np.uint8)
         bases = np.where(codes >= 4, noise, codes)
-    packed, mask = fastio.pack_stream_np(bases)
-    sep = np.flatnonzero(codes >= 4).astype(np.uint32)
-    if fmt == "out_of_range":
-        sep = np.concatenate([sep, [L, L + 77, 0xFFFFFFF0]]).astype(np.uint32)
-    cols, maxruns = cuda_skm.run_rows_slotted(_t(packed), _t(mask if fmt == "dense" else sep),
-                                              k=k, n=n, S=S, dense=fmt == "dense")
+    packed, _ = fastio.pack_stream_np(bases)
+    if noisy:
+        packed, mask = noisy_tail(packed, mask, L, seed=L)
+    cols, maxruns = cuda_skm.run_rows_slotted(_t(packed), _t(mask), k=k, n=n, S=S)
     return [c.numpy().view(np.uint32) for c in cols], int(maxruns)
 
 
@@ -111,15 +111,25 @@ def test_plain_k5_matches_reference(k):
     _assert_same(got, _pallas(codes, k, n, S))
 
 
-@pytest.mark.parametrize("fmt", ["dense", "out_of_range"])
-@pytest.mark.parametrize("k", [16, 51])
-def test_chunk_k5_formats_match_reference(k, fmt):
-    """The dense bitmap, and a separator list with out-of-range entries
-    over noisy bases, give the slots of the plain separator list (which
-    the cases above hold to the reference)."""
-    n, S = BLK, 16
+@functools.lru_cache(maxsize=None)
+def _formats_case(k):
+    """The stream of ``test_chunk_k5_formats_match_reference`` and the
+    reference's slots for it, made once for its two cases; the shape of
+    ``test_plain_k5_matches_reference``, whose reference ops are then
+    compiled already."""
+    n, S = 2 * BLK, 16
     codes = _stream(np.random.default_rng(k + 7), n, k)
-    _assert_same(_port(codes, k, n, S, fmt), _port(codes, k, n, S))
+    return codes, _xla(codes, k, n, S)
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["dense", "noisy_tail"])
+@pytest.mark.parametrize("k", [16, 51])
+def test_chunk_k5_formats_match_reference(k, noisy):
+    """The bitmap, clean and with random bases under its separators and
+    random bases and bits at and past L, gives the reference's slots
+    (``run_rows`` + ``pack_slots`` on the clean bitmap)."""
+    codes, want = _formats_case(k)
+    _assert_same(_port(codes, k, 2 * BLK, 16, noisy), want)
 
 
 def test_plain_k5_slot_overflow_matches_reference():
@@ -144,7 +154,7 @@ def test_plain_k5_runs_across_tiles_match_reference(case):
     got = _port(codes, k, n, S)
     _assert_same(got, _xla(codes, k, n, S))
     _assert_same(got, _pallas(codes, k, n, S))
-    _assert_same(_port(codes, k, n, S, "dense"), got)
+    _assert_same(_port(codes, k, n, S, noisy=True), got)
 
 
 @pytest.mark.parametrize("k,n", [(16, 3000), (51, 777), (31, 1025), (101, 4096)])
@@ -156,7 +166,7 @@ def test_plain_k5_unaligned_tail_matches_mirror(k, n):
     codes = rng.integers(0, 4, n + k - 1).astype(np.uint8)
     codes[::97] = 4
     S = 512
-    cols, maxruns = _port(codes, k, n, S, "out_of_range")
+    cols, maxruns = _port(codes, k, n, S, noisy=True)
     rows = np.stack(cols, 1)
     assert rows.shape[0] == -(-n // 512) * S
     got = {}
@@ -189,4 +199,4 @@ def test_plain_k5_rejects_bad_slots():
     with pytest.raises(ValueError, match="bases"):
         cuda_skm.run_rows_slotted(packed, sep, k=31, n=100, S=8)
     with pytest.raises(ValueError, match="bitmap"):
-        cuda_skm.run_rows_slotted(packed, sep[:1], k=31, n=50, S=8, dense=True)
+        cuda_skm.run_rows_slotted(packed, sep[:1], k=31, n=50, S=8)

@@ -35,19 +35,13 @@ def test_pack_stream_matches_reference(n):
 
 @pytest.mark.parametrize("L", [1, 17, 5000])
 def test_unpack_codes_dense_and_sparse(L):
+    """The unpack of the bitmap chunk (the one form the port ships)."""
     s = _stream(L, seed=L)
     packed, mask = ref_sc.pack_stream_np(s)
-    seps = np.flatnonzero(s >= 4).astype(np.uint32)
-    # the JAX package pads its separator list with out-of-range indices
-    padded = np.concatenate([seps, np.full(7, L, np.uint32)])
-    want_dense = np.asarray(ref_sc.unpack_codes(jnp.asarray(packed), jnp.asarray(mask), L))
-    want_sparse = np.asarray(ref_sc.unpack_codes_sparse(
-        jnp.asarray(packed), jnp.asarray(padded), L))
+    want = np.asarray(ref_sc.unpack_codes(jnp.asarray(packed), jnp.asarray(mask), L))
     t = lambda a: torch.from_numpy(a.view(np.int32))
-    got_dense = sortcount.unpack_codes(t(packed), t(mask), L).numpy()
-    got_sparse = sortcount.unpack_codes_sparse(t(packed), t(padded), L).numpy()
-    np.testing.assert_array_equal(got_dense.view(np.uint32), want_dense)
-    np.testing.assert_array_equal(got_sparse.view(np.uint32), want_sparse)
+    got = sortcount.unpack_codes(t(packed), t(mask), L).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want)
 
 
 def test_store_helpers_match_reference():

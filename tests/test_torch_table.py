@@ -243,27 +243,27 @@ def test_empty_slots_with_stale_rows_count_as_empty():
                        pending, 64) == len(packed)
 
 
-@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("n_run", [False, True])
 @pytest.mark.parametrize("k", [13, 31])
-def test_count_step_matches_reference(k, dense):
+def test_count_step_matches_reference(k, n_run):
     """One step from a batch's transfer chunk (K3's plain version on the
-    separator list or, with an N run, the bitmap) == the JAX step on the
-    same batch's tile view, slot for slot."""
+    words and bitmap; ``n_run``: with a run of 40 Ns) == the JAX step on
+    the same batch's tile view, slot for slot."""
     rng = np.random.default_rng(k)
     tile, bt = 128, 4
     flat = rng.integers(0, 4, bt * tile + k - 1).astype(np.uint8)
     flat[140:142] = 4
-    if dense:
-        flat[300:340] = 4               # past n / 32 separators: the bitmap ships
+    if n_run:
+        flat[300:340] = 4
     (tiles,) = list(ref_tiling.TileBatcher(k, tile, bt).add(flat))
     W = codec.words_per_kmer(k)
     rtk, rcn, rov, rpend = ref_table.count_step(*ref_table.make_table(11, W), jnp.asarray(tiles), k)
-    packed, sep, n, is_dense = sort_counter.pack_chunk(flat, bt * tile)
-    assert is_dense == dense and n == bt * tile
-    chunk = [sort_counter.to_device(a, torch.device("cpu")) for a in (packed, sep)]
+    words, bits, n = sort_counter.pack_chunk(flat, bt * tile)
+    assert n == bt * tile
+    chunk = [sort_counter.to_device(a, torch.device("cpu")) for a in (words, bits)]
     for kernels in ("cuda", "plain"):
         tk, cn, ov, pend = table.count_step(*table.make_table(11, W, "cpu"), *chunk, k=k, n=n,
-                                            dense=dense, kernels=kernels)
+                                            kernels=kernels)
         assert int(ov) == int(rov) == 0 and not pend.any()
         np.testing.assert_array_equal(tk.numpy().view(np.uint32), np.asarray(rtk))
         np.testing.assert_array_equal(cn.numpy(), np.asarray(rcn))
@@ -300,9 +300,9 @@ def _chunk_keys(k, n, seed, bloom_share=0.0):
     flat = rng.integers(0, 4, n + k - 1).astype(np.uint8)
     flat[rng.random(flat.shape[0]) < 0.004] = 4
     flat[n // 2: n // 2 + 2 * k] = flat[: 2 * k]            # keys seen twice in the batch
-    packed, sep, m, dense = sort_counter.pack_chunk(flat, n)
-    chunk = dict(packed=sort_counter.to_device(packed, torch.device("cpu")),
-                 sep=sort_counter.to_device(sep, torch.device("cpu")), k=k, n=m, dense=dense)
+    words, bits, m = sort_counter.pack_chunk(flat, n)
+    chunk = dict(packed=sort_counter.to_device(words, torch.device("cpu")),
+                 sep=sort_counter.to_device(bits, torch.device("cpu")), k=k, n=m)
     gate = {}
     if bloom_share:
         keys = sortcount.window_keys_from_chunk(**chunk)

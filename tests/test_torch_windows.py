@@ -73,11 +73,10 @@ def test_chunk_windows_equal_tile_windows(k):
     valid."""
     tile, bt = 64, 4
     flat = _tiles(200 + k, (3, bt * tile + k - 1)).reshape(-1)[: bt * tile + k - 1]
-    packed, sep, n, dense = sort_counter.pack_chunk(flat, bt * tile)
+    words, bits, n = sort_counter.pack_chunk(flat, bt * tile)
     cpu = torch.device("cpu")
-    ck = sortcount.window_keys_from_chunk(sort_counter.to_device(packed, cpu),
-                                          sort_counter.to_device(sep, cpu), k=k, n=n,
-                                          dense=dense)
+    ck = sortcount.window_keys_from_chunk(sort_counter.to_device(words, cpu),
+                                          sort_counter.to_device(bits, cpu), k=k, n=n)
     cv, ch = sortcount._is_sentinel_i32(ck) == 0, hash_words(ck)
     wk, wv, wh = windows.windows_with_hash(torch.from_numpy(flat).unfold(0, tile + k - 1, tile), k)
     assert torch.equal(cv, wv) and not cv.all() and cv.any()

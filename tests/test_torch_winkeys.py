@@ -4,17 +4,20 @@ JAX package: the definition from codes (``window_keys_torch``) against
 the XLA formulation ``sortcount.window_keys_from_codes``; the chunk
 entry point (``window_keys`` on CPU tensors: its plain version, the
 unpack then the definition) against the JAX package's
-``_keys_from_chunk`` in both its unpack-then-kernel route
+``_keys_from_chunk`` on the bitmap in both its unpack-then-kernel route
 (``winkeys="legacy"``, Pallas in interpret mode) and its packed route
 (``winkeys="packed"``, ``window_keys_packed``).  Tolerance 0: every key
 word is an integer.  The CUDA kernel itself is compared with the plain
 version on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
+from chunk_noise import noisy_tail
 from kaarme_tpu.ops import sortcount as ref_sc
 from kaarme_tpu.ops.pallas_winkeys import window_keys_pallas
 from kaarme_tpu_torch.io import fastio
@@ -39,9 +42,8 @@ def _port(codes, k, n):
 
 def _chunk(n, k, seed):
     """The transfer chunk as the host ships it (``fastio.pack_stream_np``):
-    random bases under the invalid positions too (the bitmap or the list
-    decides), the separator list with entries past L and one negative as
-    int32, and the dense bitmap.  Returns uint32 arrays."""
+    random bases under the invalid positions too (the bitmap decides), and
+    the bitmap.  Returns uint32 arrays."""
     rng = np.random.default_rng(seed)
     L = n + k - 1
     bases = rng.integers(0, 4, L).astype(np.uint8)
@@ -50,14 +52,30 @@ def _chunk(n, k, seed):
     inv[1000:1003] = True
     packed, _ = fastio.pack_stream_np(bases)
     _, mask = fastio.pack_stream_np(inv.astype(np.uint8) * 4)
-    sep = np.concatenate([np.flatnonzero(inv), [L, L + 9, 0xFFFFFFF0]]).astype(np.uint32)
-    return packed, sep, mask
+    return packed, mask
 
 
-def _from_chunk(packed, s, k, n, dense):
+@functools.lru_cache(maxsize=None)
+def _jax_chunk_keys(k, n, seed, routes):
+    """The JAX package's ``_keys_from_chunk`` on the clean chunk
+    ``_chunk(n, k, seed)``, one key list (numpy words) per route
+    ("legacy": unpack + Pallas in interpret mode, or its XLA formulation
+    where n is no multiple of 16; "packed"), made once for a test's
+    ``noisy_tail`` and ``dense`` cases."""
+    pj, sj = (jnp.asarray(a) for a in _chunk(n, k, seed))
+    pallas = {"legacy": "interpret", "packed": "off"}
+    return [[np.asarray(x) for x in ref_sc._keys_from_chunk(pj, sj, True, k, n, 1, pallas[r], r)]
+            for r in routes]
+
+
+def _from_chunk(packed, mask, k, n, noisy):
+    """The port's keys from the chunk; ``noisy``: from ``noisy_tail`` of
+    it, with random bases and bitmap bits at and past L."""
+    if noisy:
+        packed, mask = noisy_tail(packed, mask, n + k - 1, seed=n + k)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
     return [c.numpy().view(np.uint32)
-            for c in cuda_winkeys.window_keys(t(packed), t(s), k=k, n=n, dense=dense)]
+            for c in cuda_winkeys.window_keys(t(packed), t(mask), k=k, n=n)]
 
 
 @pytest.mark.parametrize("k", [13, 16, 51, 201])
@@ -79,39 +97,34 @@ def test_window_keys_match_pallas_and_xla(k):
         assert (got[-1][~sent] & ((1 << (2 * (16 - k % 16))) - 1) == 0).all()
 
 
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+@pytest.mark.parametrize("noisy", [True, False], ids=["noisy_tail", "dense"])
 @pytest.mark.parametrize("k", [2, 13, 16, 17, 51, 201])
-def test_window_keys_from_chunk_match_jax_chunk_routes(k, dense):
+def test_window_keys_from_chunk_match_jax_chunk_routes(k, noisy):
     """The chunk entry point on CPU tensors against the JAX package's
-    chunk routes: unpack + Pallas (interpret) and the packed formulation.
-    L = 2047 + k is a multiple of 16 only at k = 17 and of 32 never."""
+    chunk routes on the clean bitmap: unpack + Pallas (interpret) and the
+    packed formulation.  L = 2047 + k is a multiple of 16 only at k = 17
+    and of 32 never; the noisy tail must not change a key."""
     n = 2048
-    packed, sep, mask = _chunk(n, k, seed=k + 100 * dense)
-    s = mask if dense else sep
-    got = _from_chunk(packed, s, k, n, dense)
+    got = _from_chunk(*_chunk(n, k, seed=k + 100), k, n, noisy)
     assert len(got) == -(-k // 16)
-    pj, sj = jnp.asarray(packed), jnp.asarray(s)
-    legacy = ref_sc._keys_from_chunk(pj, sj, dense, k, n, 1, "interpret", "legacy")
-    packed_route = ref_sc._keys_from_chunk(pj, sj, dense, k, n, 1, "off", "packed")
+    legacy, packed_route = _jax_chunk_keys(k, n, k + 100, ("legacy", "packed"))
     for g, x, p in zip(got, legacy, packed_route):
-        np.testing.assert_array_equal(g, np.asarray(x))
-        np.testing.assert_array_equal(g, np.asarray(p))
+        np.testing.assert_array_equal(g, x)
+        np.testing.assert_array_equal(g, p)
     sent = np.logical_and.reduce([g == M32 for g in got])
     assert 0 < sent.sum() < n
 
 
-@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+@pytest.mark.parametrize("noisy", [True, False], ids=["noisy_tail", "dense"])
 @pytest.mark.parametrize("k,n", [(13, 5003), (51, 777), (2, 1)])
-def test_window_keys_from_chunk_odd_tails(k, n, dense):
+def test_window_keys_from_chunk_odd_tails(k, n, noisy):
     """Tail supersteps from the chunk: n no multiple of 16, so the JAX
-    package's chunk route unpacks and takes its XLA formulation."""
-    packed, sep, mask = _chunk(n, k, seed=n + dense)
-    s = mask if dense else sep
-    got = _from_chunk(packed, s, k, n, dense)
-    want = ref_sc._keys_from_chunk(jnp.asarray(packed), jnp.asarray(s), dense, k, n, 1,
-                                   "interpret", "legacy")
+    package's chunk route unpacks and takes its XLA formulation (on the
+    clean bitmap)."""
+    got = _from_chunk(*_chunk(n, k, seed=n + 1), k, n, noisy)
+    (want,) = _jax_chunk_keys(k, n, n + 1, ("legacy",))
     for g, x in zip(got, want):
-        np.testing.assert_array_equal(g, np.asarray(x))
+        np.testing.assert_array_equal(g, x)
 
 
 def _funnel(packed, p):
@@ -191,7 +204,7 @@ def test_canonical_orientation_and_sentinels():
     assert pk.tolist() == want
     # the same from the chunk
     packed, mask = fastio.pack_stream_np(stream.astype(np.uint8))
-    assert (np.stack(_from_chunk(packed, mask, k, n, True), 1) == keys).all()
+    assert (np.stack(_from_chunk(packed, mask, k, n, False), 1) == keys).all()
 
 
 def test_argument_checks():
@@ -203,11 +216,11 @@ def test_argument_checks():
     with pytest.raises(ValueError):
         cuda_winkeys.window_keys_torch(codes.long(), 5, 6)
     assert [c.shape for c in cuda_winkeys.window_keys_torch(codes, 5, 0)] == [(0,)]
-    packed, sep = torch.zeros(2, dtype=torch.int32), torch.zeros(0, dtype=torch.int32)
+    packed, sep = torch.zeros(2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError):
         cuda_winkeys.window_keys(packed, sep, k=5, n=29)          # 33 bases > 32
     with pytest.raises(ValueError):
-        cuda_winkeys.window_keys(packed, sep, k=5, n=20, dense=True)   # no bitmap words
+        cuda_winkeys.window_keys(packed, sep[:0], k=5, n=20)      # no bitmap words
     with pytest.raises(ValueError):
         cuda_winkeys.window_keys(packed.long(), sep, k=5, n=20)
     assert [c.shape for c in cuda_winkeys.window_keys(packed, sep, k=5, n=0)] == [(0,)]

@@ -8,7 +8,7 @@ Run from the repository root.  Times a kernel of this checkout and of the
 checkout at OTHER_ROOT (for example the parent commit, unpacked with
 ``git archive``) on the inputs chip_smoke.py builds (``read_stream`` +
 ``chunk_of``: k=51, 2^26 windows of 150 bp reads sampled from a random
-4.6 Mb genome, with N patches, separators as a sparse list):
+4.6 Mb genome, with N patches, separators as the bitmap):
 
 - k1: ``cuda_skm.run_rows_dense`` at cap 2^23 (the skm counter's first
   capacity);
@@ -102,7 +102,9 @@ checkout at OTHER_ROOT (for example the parent commit, unpacked with
 Where a checkout's K1, K3 or K5 takes codes (before its chunk-input
 kernel), the timed call is ``sortcount.codes_from_chunk`` followed by it,
 as its main path ran them (``inspect`` tells them apart, as it tells
-the T1 interfaces apart).  Each checkout runs in its own process (the packages
+the T1 interfaces apart); where its chunk functions still take a
+separator list as well, they are told that the chunk holds the bitmap
+(``bitmap_kw``).  Each checkout runs in its own process (the packages
 share a name), in the order other, this, this, other; each process builds
 its kernels first and prints one JSON line: CUDA-event medians of
 ``--reps`` calls after a warm-up, and a digest of the outputs, which must
@@ -141,32 +143,42 @@ def takes_codes(fn) -> bool:
     return next(iter(inspect.signature(fn).parameters)) == "codes"
 
 
+def bitmap_kw(fn) -> dict:
+    """``fn``'s keyword for a bitmap chunk: ``dense=True`` in a checkout
+    whose chunk functions also took the separator list, else none."""
+    return {"dense": True} if "dense" in inspect.signature(fn).parameters else {}
+
+
 def k1_calls(cs, dev):
     from kaarme_tpu_torch.ops import cuda_skm, sortcount
 
     k, n = cs.K, cs.N_WINDOWS
-    packed, sep, _ = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
+    packed, bitmap = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
     if takes_codes(cuda_skm.run_rows_dense):
         def fn():
-            codes = sortcount.codes_from_chunk(packed, sep, k=k, n=n, dense=False)
+            codes = sortcount.codes_from_chunk(packed, bitmap, k=k, n=n,
+                                               **bitmap_kw(sortcount.codes_from_chunk))
             return cuda_skm.run_rows_dense(codes, k=k, n=n, cap=CAP)
         return "codes_from_chunk + K1 (codes input)", {"k1": fn}
+    kw = bitmap_kw(cuda_skm.run_rows_dense)
     return "K1 (chunk input)", {
-        "k1": lambda: cuda_skm.run_rows_dense(packed, sep, k=k, n=n, cap=CAP, dense=False)}
+        "k1": lambda: cuda_skm.run_rows_dense(packed, bitmap, k=k, n=n, cap=CAP, **kw)}
 
 
 def k5_calls(cs, dev):
     from kaarme_tpu_torch.ops import cuda_skm, sortcount
 
     k, n = cs.K, cs.N_WINDOWS
-    packed, sep, _ = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
+    packed, bitmap = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
     if takes_codes(cuda_skm.run_rows_slotted):
         def fn():
-            codes = sortcount.codes_from_chunk(packed, sep, k=k, n=n, dense=False)
+            codes = sortcount.codes_from_chunk(packed, bitmap, k=k, n=n,
+                                               **bitmap_kw(sortcount.codes_from_chunk))
             return cuda_skm.run_rows_slotted(codes, k=k, n=n, S=S_SLOTS)
         return "codes_from_chunk + K5 (codes input)", {"k5": fn}
+    kw = bitmap_kw(cuda_skm.run_rows_slotted)
     return "K5 (chunk input)", {
-        "k5": lambda: cuda_skm.run_rows_slotted(packed, sep, k=k, n=n, S=S_SLOTS, dense=False)}
+        "k5": lambda: cuda_skm.run_rows_slotted(packed, bitmap, k=k, n=n, S=S_SLOTS, **kw)}
 
 
 def k3_calls(cs, dev):
@@ -176,14 +188,16 @@ def k3_calls(cs, dev):
     n, calls = cs.N_WINDOWS, {}
     codes_input = takes_codes(cuda_winkeys.window_keys)
     for k in (51, 13):
-        packed, sep, _ = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
+        packed, bitmap = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
 
-        def fn(packed=packed, sep=sep, k=k):
+        def fn(packed=packed, bitmap=bitmap, k=k):
             if codes_input:
-                codes = sortcount.codes_from_chunk(packed, sep, k=k, n=n, dense=False)
+                codes = sortcount.codes_from_chunk(packed, bitmap, k=k, n=n,
+                                                   **bitmap_kw(sortcount.codes_from_chunk))
                 keys = cuda_winkeys.window_keys(codes, k, n)
             else:
-                keys = cuda_winkeys.window_keys(packed, sep, k=k, n=n, dense=False)
+                keys = cuda_winkeys.window_keys(packed, bitmap, k=k, n=n,
+                                                **bitmap_kw(cuda_winkeys.window_keys))
             return keys, torch.tensor([len(keys)])
         calls[f"k{k}"] = fn
     return ("codes_from_chunk + K3 (codes input)" if codes_input else "K3 (chunk input)"), calls
@@ -218,11 +232,12 @@ def k2_calls(cs, dev):
     from kaarme_tpu_torch.ops import cuda_compact, cuda_skm, cuda_winkeys, skm, sortcount
 
     k, n = cs.K, cs.N_WINDOWS
-    packed, sep, _ = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
-    cols, rows = cuda_skm.run_rows_dense_plain(packed, sep, k=k, n=n,
-                                               cap=sortcount.next_store_size(n // 8))
+    packed, bitmap = cs.chunk_of(cs.read_stream(dev, 4_600_000, n + k - 1, n_every=100_003))
+    cols, rows = cuda_skm.run_rows_dense_plain(packed, bitmap, k=k, n=n,
+                                               cap=sortcount.next_store_size(n // 8),
+                                               **bitmap_kw(cuda_skm.run_rows_dense_plain))
     merge, n1 = cs.k2_merge_input(cols, int(rows[0]))
-    del cols, packed, sep
+    del cols, packed, bitmap
     store = cuda_compact.segsum_compact_torch(merge, None, ebits=skm.EBITS)
     fkeys, fcnt = cs.k2_finalize_input(store, n1)
     del store
@@ -268,15 +283,16 @@ def t1_worker(cs, dev, root: str, reps: int) -> dict:
                 codes[1::2] = 1
         tk, cn = torch.zeros((1 << cs.TABLE_LOG2, 4), dtype=torch.int32, device=dev), \
             torch.zeros(1 << cs.TABLE_LOG2, dtype=torch.int32, device=dev)
-        batch = lambda b: cs.chunk_of(codes[b * per: (b + 1) * per + cs.K - 1])[:2]
+        batch = lambda b: cs.chunk_of(codes[b * per: (b + 1) * per + cs.K - 1])
+        kw = bitmap_kw(sortcount.window_keys_from_chunk)
         for b in range(before):
-            packed, sep = batch(b)
-            keys = sortcount.window_keys_from_chunk(packed, sep, k=cs.K, n=per)
+            packed, bitmap = batch(b)
+            keys = sortcount.window_keys_from_chunk(packed, bitmap, k=cs.K, n=per, **kw)
             if int(step(tk, cn, keys)[1]):
                 raise RuntimeError(f"t1 {name}: pending windows while filling the table")
-        packed, sep = batch(before)
-        keys = sortcount.window_keys_from_chunk(packed, sep, k=cs.K, n=per)
-        del codes, packed, sep
+        packed, bitmap = batch(before)
+        keys = sortcount.window_keys_from_chunk(packed, bitmap, k=cs.K, n=per, **kw)
+        del codes, packed, bitmap
         fresh = lambda: (tk.clone(), cn.clone(), keys)
         t, c, _ = fresh()
         if int(step(t, c, keys)[1]):
@@ -378,9 +394,13 @@ def bloom_worker(cs, dev, root: str, reps: int) -> dict:
         else:
             codes = torch.zeros(2 * per + k - 1, dtype=torch.int32, device=dev)
         bf1, bf2 = bloom.make_bloom(bits, dev), bloom.make_bloom(bits, dev)
+        # chip_smoke.table_batch, told where needed that the chunk holds the bitmap
+        batch_keys = lambda b: sortcount.window_keys_from_chunk(
+            *cs.chunk_of(codes[b * per: (b + 1) * per + k - 1]), k=k, n=per,
+            **bitmap_kw(sortcount.window_keys_from_chunk))
         for b in range(max(before, 1)):
-            bf1, bf2, _, _ = insert(bf1, bf2, cs.table_batch(codes, b, k)())
-        keys = cs.table_batch(codes, max(before, 1), k)()
+            bf1, bf2, _, _ = insert(bf1, bf2, batch_keys(b))
+        keys = batch_keys(max(before, 1))
         del codes
         measure(name, bf1, bf2, keys)
         del bf1, bf2, keys
@@ -392,9 +412,10 @@ def bloom_worker(cs, dev, root: str, reps: int) -> dict:
     codes = cs.read_stream(dev, 4_600_000, 2 * n + cs.K - 1, n_every=100_003)
     bf1, bf2 = bloom.make_bloom(bits, dev), bloom.make_bloom(bits, dev)
     for step in range(2):
-        packed, seps, _ = cs.chunk_of(codes[step * n: (step + 1) * n + cs.K - 1])
-        keys = sortcount.window_keys_from_chunk(packed, seps, k=cs.K, n=n)
-        del packed, seps
+        packed, bitmap = cs.chunk_of(codes[step * n: (step + 1) * n + cs.K - 1])
+        keys = sortcount.window_keys_from_chunk(packed, bitmap, k=cs.K, n=n,
+                                                **bitmap_kw(sortcount.window_keys_from_chunk))
+        del packed, bitmap
         bf1, bf2 = measure(f"superstep{step}", bf1, bf2, keys)
         del keys
         torch.cuda.empty_cache()
